@@ -7,10 +7,12 @@ package. Entry points take ``device=`` (default ``"cuda"``) and raise when
 no GPU is present unless the caller asks for the CPU.
 
 Ported so far: host-driven NDT and point-to-plane scan-to-map registration
-(``register_ndt``, ``register_point_to_plane``) and the device-resident
-``NdtRegistrar`` (6-DoF, planar, point-to-plane, lockstep batches), whose
-factor evaluation runs in the hand-written CUDA kernels ``csrc/maha6.cu``,
-``csrc/maha3.cu`` and ``csrc/p2p.cu``.
+(``register_ndt``, ``register_point_to_plane``), the device-resident
+``NdtRegistrar`` (6-DoF, planar, point-to-plane, lockstep batches), and the
+single-pose minimizers (6-DoF and planar 3-DoF NDT, reprojection/PnP,
+point-to-plane), whose factor evaluation runs in the hand-written CUDA
+kernels ``csrc/maha6.cu``, ``csrc/maha3.cu``, ``csrc/maha3c.cu``,
+``csrc/reproj.cu`` and ``csrc/p2p.cu``.
 """
 
 from . import core, interop, ops, pipelines, solvers, utils
@@ -38,6 +40,12 @@ from .pipelines import (
     register_ndt_fused,
     register_point_to_plane,
 )
-from .solvers import MahalanobisDistanceMinimizer, PointToPlaneMinimizer, Summary
+from .solvers import (
+    MahalanobisDistanceMinimizer,
+    MahalanobisDistanceMinimizer3DOF,
+    PointToPlaneMinimizer,
+    ReprojectionErrorMinimizer,
+    Summary,
+)
 
 __version__ = "0.1.0"

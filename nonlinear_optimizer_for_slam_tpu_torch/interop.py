@@ -19,9 +19,15 @@ a given device:
   ``means_T``, ``infos_T``, ``normals_T``, ``voxel_weights`` and
   ``map_mask`` (each may be None or left out but the first two); it goes to
   ``device`` in ``dtype`` as a ``RegistrarMap``, which the port's
-  ``NdtRegistrar`` takes in place of an ``NdtMap``.
+  ``NdtRegistrar`` takes in place of an ``NdtMap``;
+- ``reprojection_data``: the ``ReprojectionData`` fields ``local_points``,
+  ``matched_pixels`` and ``mask``, to ``device`` in ``dtype``;
+- ``intrinsics``: the ``CameraIntrinsics`` fields ``fx``, ``fy``, ``cx``,
+  ``cy``, ``width`` and ``height``, rebuilt with ``CameraIntrinsics.create``
+  (host floats; a minimizer casts them to its dtype).
 
-:func:`to_reference` is the inverse: the same dicts back, as numpy.
+:func:`to_reference` is the inverse: the same dicts back, as numpy (the
+intrinsics as floats and ints).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from .core.options import (
 )
 from .core.pose import Pose
 from .ops.mahalanobis import MahalanobisData
+from .ops.reprojection import CameraIntrinsics, ReprojectionData
 from .pipelines.fused_registration import RegistrarMap
 from .pipelines.ndt import NdtMap
 
@@ -70,6 +77,8 @@ class PortState(NamedTuple):
     loss: Optional[losses_mod.LossFunction]
     options: Optional[Options]
     registrar_map: Optional[RegistrarMap] = None
+    reprojection_data: Optional[ReprojectionData] = None
+    intrinsics: Optional[CameraIntrinsics] = None
 
 
 def _enum(cls, value):
@@ -107,12 +116,15 @@ def from_reference(
     loss: Optional[Tuple[str, Mapping[str, float]]] = None,
     options: Optional[Mapping[str, Any]] = None,
     registrar_map: Optional[Mapping[str, Optional[np.ndarray]]] = None,
+    reprojection_data: Optional[Mapping[str, np.ndarray]] = None,
+    intrinsics: Optional[Mapping[str, Any]] = None,
     device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> PortState:
     """The port's objects from numpy copies of the JAX package's (see the
-    module docstring). ``data`` and ``registrar_map`` go to ``device`` in
-    ``dtype``; raises if ``device`` names CUDA and no GPU is present."""
+    module docstring). ``data``, ``registrar_map`` and ``reprojection_data``
+    go to ``device`` in ``dtype``; raises if ``device`` names CUDA and no GPU
+    is present."""
     device = resolve_device(device)
     port_map = None
     if ndt_map is not None:
@@ -123,14 +135,10 @@ def from_reference(
             counts=np.asarray(ndt_map["counts"]),
             valid=np.asarray(ndt_map["valid"], bool),
         )
+    to_device = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
     port_data = None
     if data is not None:
-        port_data = MahalanobisData(
-            *(
-                torch.tensor(np.asarray(data[f]), dtype=dtype, device=device)
-                for f in MahalanobisData._fields
-            )
-        )
+        port_data = MahalanobisData(*(to_device(data[f]) for f in MahalanobisData._fields))
     port_pose = None
     if pose is not None:
         port_pose = Pose(
@@ -148,13 +156,25 @@ def from_reference(
     if registrar_map is not None:
         port_registrar_map = RegistrarMap(
             *(
-                None if registrar_map.get(f) is None
-                else torch.tensor(np.asarray(registrar_map[f]), dtype=dtype, device=device)
+                None if registrar_map.get(f) is None else to_device(registrar_map[f])
                 for f in RegistrarMap._fields
             )
         )
+    port_reprojection = None
+    if reprojection_data is not None:
+        port_reprojection = ReprojectionData(
+            *(to_device(reprojection_data[f]) for f in ReprojectionData._fields)
+        )
+    port_intrinsics = None
+    if intrinsics is not None:
+        port_intrinsics = CameraIntrinsics.create(
+            *(float(intrinsics[f]) for f in ("fx", "fy", "cx", "cy")),
+            width=int(intrinsics.get("width", 0)),
+            height=int(intrinsics.get("height", 0)),
+        )
     return PortState(
-        port_map, port_data, port_pose, port_loss, port_options, port_registrar_map
+        port_map, port_data, port_pose, port_loss, port_options, port_registrar_map,
+        port_reprojection, port_intrinsics,
     )
 
 
@@ -188,5 +208,16 @@ def to_reference(state: PortState) -> dict:
         out["registrar_map"] = {
             f: None if a is None else a.cpu().numpy()
             for f, a in zip(RegistrarMap._fields, state.registrar_map)
+        }
+    if state.reprojection_data is not None:
+        out["reprojection_data"] = {
+            f: a.cpu().numpy()
+            for f, a in zip(ReprojectionData._fields, state.reprojection_data)
+        }
+    if state.intrinsics is not None:
+        intr = state.intrinsics
+        out["intrinsics"] = {
+            "fx": float(intr.fx), "fy": float(intr.fy), "cx": float(intr.cx),
+            "cy": float(intr.cy), "width": int(intr.width), "height": int(intr.height),
         }
     return out

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` (one per kernel of ``KERNELS``) is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, at first use, into ``build/torch_kernels/``
+Each ``csrc/<name>.cu`` (one per kernel of ``KERNELS``) is compiled by
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface, at first use, into ``build/torch_kernels/``
 beside the package (``.gitignore`` lists ``build/``), and loaded with
 ``ctypes``. The library's file name carries a hash of the sources, so an
 edited source is rebuilt and a stale library is never loaded. Nothing is
@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_kernels"
-KERNELS = ("maha6", "maha3", "p2p")
+KERNELS = ("maha6", "maha3", "maha3c", "reproj", "p2p")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

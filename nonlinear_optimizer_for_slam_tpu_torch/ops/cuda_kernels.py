@@ -1,13 +1,15 @@
 """Hand-written CUDA kernels for factor-quadratic evaluation (PyTorch
 counterpart of the JAX package's ``ops/pallas_kernels.py``).
 
-Three kernels, one per factor: ``maha6`` (6-DoF NDT), ``maha3`` (planar
-3-DoF NDT over the maha6 rows) and ``p2p`` (point-to-plane). Each warps the
-points, forms residuals and analytic Jacobians, applies the robust-loss
-weight and reduces the per-factor (upper-triangle J^T J, J^T r, cost)
-terms, with nothing per-factor written to device memory. Sources:
-``csrc/<name>.cu`` (per-factor math in ``csrc/factor_math.cuh``, the
-two-pass reduction in ``csrc/partials.cuh``), built by ``ops/_build.py``.
+Five kernels, one per factor: ``maha6`` (6-DoF NDT), ``maha3`` (planar
+3-DoF NDT over the maha6 rows), ``maha3c`` (planar 3-DoF NDT over the
+compact Gram rows), ``reproj`` (pinhole reprojection) and ``p2p``
+(point-to-plane). Each warps the points, forms residuals and analytic
+Jacobians, applies the robust-loss weight and reduces the per-factor
+(upper-triangle J^T J, J^T r, cost) terms, with nothing per-factor written
+to device memory. Sources: ``csrc/<name>.cu`` (per-factor math in
+``csrc/factor_math.cuh``, the two-pass reduction in ``csrc/partials.cuh``),
+built by ``ops/_build.py``.
 
 Every kernel has a plain PyTorch version beside it, with the same
 arithmetic and output order. A wrapper given CPU tensors takes the plain
@@ -18,10 +20,15 @@ kernel.
 Packed buffers are (B, rows, N) float32, one row per field:
 
     maha6, maha3 (16 rows): p 0-2, mu 3-5, S row-major 6-14, mask 15
+    maha3c (10 rows):       u 0-1, mu_xy 2-3, M00 M01 M11 4-6, v 7-8, szz 9
+                            (the mask folded into M, v and szz)
+    reproj (6 rows):        X 0-2, pixel 3-4, mask 5
     p2p (10 rows):          p 0-2, mu 3-5, n 6-8, mask 9
 
 Params are (B, 16) float32 [R row-major 9, t 3, loss a, loss b, 0, 0] for
-maha6 and p2p, and (B, 8) [R2 row-major 4, t2 2, loss a, loss b] for maha3.
+maha6 and p2p; (B, 8) [R2 row-major 4, t2 2, loss a, loss b] for maha3 and
+maha3c; (B, 20) [R row-major 9, t 3, inv_fx, inv_fy, cx, cy, loss a,
+loss b, min depth, 0] for reproj.
 """
 
 from __future__ import annotations
@@ -40,11 +47,13 @@ from ..core.losses import (
     LossFunction,
     TrivialLoss,
     TukeyLoss,
+    exp_rounded,
 )
 from . import _build
 from .mahalanobis import MahalanobisData
 from .point_to_plane import PointToPlaneData
 from .quadratic import unpack_symmetric
+from .reprojection import MIN_DEPTH, CameraIntrinsics, ReprojectionData
 
 Tensor = torch.Tensor
 
@@ -52,7 +61,13 @@ Tensor = torch.Tensor
 LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNELS}
 
 # (packed rows, params, outputs) of each kernel.
-_SHAPES = {"maha6": (16, 16, 28), "maha3": (16, 8, 10), "p2p": (10, 16, 28)}
+_SHAPES = {
+    "maha6": (16, 16, 28),
+    "maha3": (16, 8, 10),
+    "maha3c": (10, 8, 10),
+    "reproj": (6, 20, 28),
+    "p2p": (10, 16, 28),
+}
 
 
 def reset_launches() -> None:
@@ -95,7 +110,7 @@ def _eval_loss(loss_code: int, sq: Tensor, a: Tensor, b: Tensor):
     if loss_code == _LOSS_NONE:
         return sq, torch.ones_like(sq)
     if loss_code == _LOSS_EXP:
-        exp_term = torch.exp(-b * sq)
+        exp_term = exp_rounded(-b * sq)
         return a - a * exp_term, 2.0 * a * b * exp_term
     if loss_code == _LOSS_CAUCHY:
         c2 = a * a
@@ -126,8 +141,8 @@ def _eval_loss(loss_code: int, sq: Tensor, a: Tensor, b: Tensor):
 
 def maha6_loss_ab(loss: Optional[LossFunction], device) -> Tuple[int, Tensor]:
     """(loss code, the (4,) float32 params tail [a, b, 0, 0] on ``device``),
-    for all three kernels. Build it once per solve: it is a host-to-device
-    copy."""
+    for maha6, maha3, maha3c and p2p. Build it once per solve: it is a
+    host-to-device copy."""
     code, (a, b) = _loss_static(loss)
     return code, torch.tensor([a, b, 0.0, 0.0], dtype=torch.float32, device=device)
 
@@ -148,14 +163,45 @@ def maha6_params(rotation: Tensor, translation: Tensor, loss_ab: Tensor) -> Tens
 
 
 def maha3_params(rotation2: Tensor, translation2: Tensor, loss_ab: Tensor) -> Tensor:
-    """(..., 8) float32 params of maha3 [R2 row-major 4, t2 2, loss a,
-    loss b], built on the device from the tail of :func:`maha6_loss_ab`."""
+    """(..., 8) float32 params of maha3 and maha3c [R2 row-major 4, t2 2,
+    loss a, loss b], built on the device from the tail of
+    :func:`maha6_loss_ab`."""
     lead = rotation2.shape[:-2]
     return torch.cat(
         [
             rotation2.reshape(lead + (4,)).to(torch.float32),
             translation2.to(torch.float32),
             loss_ab[:2].expand(lead + (2,)),
+        ],
+        dim=-1,
+    )
+
+
+def reproj_loss_ab(loss: Optional[LossFunction], device) -> Tuple[int, Tensor]:
+    """(loss code, the (4,) float32 params tail [a, b, min depth, 0] of
+    reproj on ``device``). Build it once per solve."""
+    code, (a, b) = _loss_static(loss)
+    return code, torch.tensor([a, b, MIN_DEPTH, 0.0], dtype=torch.float32, device=device)
+
+
+def reproj_params(
+    rotation: Tensor, translation: Tensor, intrinsics: CameraIntrinsics, loss_ab: Tensor
+) -> Tensor:
+    """(..., 20) float32 params of reproj [R row-major 9, t 3, inv_fx,
+    inv_fy, cx, cy, loss a, loss b, min depth, 0], from the tail of
+    :func:`reproj_loss_ab`. The intrinsics are floats or scalar tensors;
+    tensors on the device cost no copy."""
+    lead = rotation.shape[:-2]
+    camera = torch.stack([
+        torch.as_tensor(v, dtype=torch.float32, device=rotation.device)
+        for v in (intrinsics.inv_fx, intrinsics.inv_fy, intrinsics.cx, intrinsics.cy)
+    ])
+    return torch.cat(
+        [
+            rotation.reshape(lead + (9,)).to(torch.float32),
+            translation.to(torch.float32),
+            camera.expand(lead + (4,)),
+            loss_ab.expand(lead + (4,)),
         ],
         dim=-1,
     )
@@ -256,6 +302,69 @@ def maha3_terms(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     return torch.stack(_upper_products(J, w, r) + [rho], dim=1)
 
 
+def maha3c_terms(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
+    """(B, 10, N): every factor's 10 planar terms from the compact Gram
+    rows, the kernel's arithmetic."""
+    prm = lambda k: params[:, k : k + 1]
+    R00, R01, R10, R11 = (prm(k) for k in range(4))
+    f = lambda k: packed[:, k]
+    u0, u1, M00, M01, M11, v0, v1 = f(0), f(1), f(4), f(5), f(6), f(7), f(8)
+
+    e0 = R00 * u0 + R01 * u1 + prm(4) - f(2)
+    e1 = R10 * u0 + R11 * u1 + prm(5) - f(3)
+    Me0 = M00 * e0 + M01 * e1
+    Me1 = M01 * e0 + M11 * e1
+    sq = torch.clamp(e0 * Me0 + e1 * Me1 + 2.0 * (v0 * e0 + v1 * e1) + f(9), min=0.0)
+    rho, w = _eval_loss(loss_code, sq, prm(6), prm(7))
+
+    rs0 = -R00 * u1 + R01 * u0
+    rs1 = -R10 * u1 + R11 * u0
+    MR0 = M00 * rs0 + M01 * rs1
+    MR1 = M01 * rs0 + M11 * rs1
+    g0 = Me0 + v0
+    g1 = Me1 + v1
+    terms = [M00, M01, MR0, M11, MR1, rs0 * MR0 + rs1 * MR1, g0, g1, rs0 * g0 + rs1 * g1]
+    return torch.stack([w * x for x in terms] + [rho], dim=1)
+
+
+def reproj_terms(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
+    """(B, 28, N): every correspondence's 28 terms, the kernel's
+    arithmetic."""
+    prm = lambda k: params[:, k : k + 1]
+    R = [prm(k) for k in range(9)]
+    f = lambda k: packed[:, k]
+    X = [f(k) for k in range(3)]
+
+    Xw = [
+        R[3 * i + 0] * X[0] + R[3 * i + 1] * X[1] + R[3 * i + 2] * X[2] + prm(9 + i)
+        for i in range(3)
+    ]
+    in_front = Xw[2] >= prm(18)
+    valid = in_front.to(Xw[2].dtype)
+    inv_z = 1.0 / torch.where(in_front, Xw[2], torch.ones_like(Xw[2]))
+    inv_z2 = inv_z * inv_z
+    r0 = (Xw[0] * inv_z - prm(12) * (f(3) - prm(14))) * valid
+    r1 = (Xw[1] * inv_z - prm(13) * (f(4) - prm(15))) * valid
+    rho, w = _eval_loss(loss_code, r0 * r0 + r1 * r1, prm(16), prm(17))
+    m = f(5) * valid
+    w = w * m
+    rho = rho * m
+
+    dx = -Xw[0] * inv_z2
+    dy = -Xw[1] * inv_z2
+    zero = torch.zeros_like(inv_z)
+    cols = (
+        [R[3 * i + 1] * X[2] - R[3 * i + 2] * X[1] for i in range(3)],
+        [R[3 * i + 2] * X[0] - R[3 * i + 0] * X[2] for i in range(3)],
+        [R[3 * i + 0] * X[1] - R[3 * i + 1] * X[0] for i in range(3)],
+    )
+    J = [
+        [inv_z, zero, dx] + [-(inv_z * c[0] + dx * c[2]) for c in cols],
+        [zero, inv_z, dy] + [-(inv_z * c[1] + dy * c[2]) for c in cols],
+    ]
+    return torch.stack(_upper_products(J, w, [r0, r1]) + [rho], dim=1)
+
+
 def p2p_terms(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     """(B, 28, N): every point-plane pair's 28 terms, the kernel's
     arithmetic."""
@@ -289,7 +398,13 @@ def p2p_terms(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     return torch.stack(terms + [rho], dim=1)
 
 
-_TERMS = {"maha6": maha6_terms, "maha3": maha3_terms, "p2p": p2p_terms}
+_TERMS = {
+    "maha6": maha6_terms,
+    "maha3": maha3_terms,
+    "maha3c": maha3c_terms,
+    "reproj": reproj_terms,
+    "p2p": p2p_terms,
+}
 
 
 def maha6_plain(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
@@ -303,6 +418,18 @@ def maha3_plain(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     """Plain PyTorch version of the maha3 kernel: (B, 8) params and
     (B, 16, N) packed -> (B, 10)."""
     return maha3_terms(params, packed, loss_code).sum(dim=-1)
+
+
+def maha3c_plain(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
+    """Plain PyTorch version of the maha3c kernel: (B, 8) params and
+    (B, 10, N) packed -> (B, 10)."""
+    return maha3c_terms(params, packed, loss_code).sum(dim=-1)
+
+
+def reproj_plain(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
+    """Plain PyTorch version of the reproj kernel: (B, 20) params and
+    (B, 6, N) packed -> (B, 28)."""
+    return reproj_terms(params, packed, loss_code).sum(dim=-1)
 
 
 def p2p_plain(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
@@ -401,6 +528,19 @@ def maha3_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     return _partials("maha3", params, packed, loss_code)
 
 
+def maha3c_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
+    """(B, 8) params and (B, 10, N) compact packed -> (B, 10) float32: per
+    problem, the 6 upper-triangle entries of the planar H, the 3 of g and
+    the cost (``csrc/maha3c.cu``; the plain version on the CPU)."""
+    return _partials("maha3c", params, packed, loss_code)
+
+
+def reproj_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
+    """(B, 20) params and (B, 6, N) packed -> (B, 28) float32
+    (``csrc/reproj.cu``; the plain version on the CPU)."""
+    return _partials("reproj", params, packed, loss_code)
+
+
 def p2p_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     """(B, 16) params and (B, 10, N) packed -> (B, 28) float32
     (``csrc/p2p.cu``; the plain version on the CPU)."""
@@ -435,6 +575,34 @@ def pack_maha6(data: MahalanobisData) -> Tensor:
     return rows.T.to(torch.float32).contiguous()
 
 
+def pack_maha3_compact(data: MahalanobisData) -> Tensor:
+    """(N, ...) SoA -> compact (10, N) float32 rows for maha3c: u, mu_xy,
+    and the pose-independent Gram quantities of each factor's residual
+    rows r_i = a_i.(R2 u + t2 - mu_xy) + wz_i (a_i = S[i, :2],
+    wz_i = S[i, 2] (p_z - mu_z)): M = sum_i a_i a_i^T, v = sum_i a_i wz_i,
+    szz = sum_i wz_i^2. They are formed in the data's dtype and multiplied
+    by the mask before the cast, as in the JAX package. Once per solve."""
+    S = data.sqrt_infos
+    a0, a1 = S[:, :, 0], S[:, :, 1]  # (N, 3): the columns a_i[0], a_i[1]
+    wz = S[:, :, 2] * (data.points[:, 2] - data.means[:, 2])[:, None]
+    dot = lambda x, y: x[:, 0] * y[:, 0] + x[:, 1] * y[:, 1] + x[:, 2] * y[:, 2]
+    m = data.mask
+    rows = torch.stack([
+        data.points[:, 0], data.points[:, 1], data.means[:, 0], data.means[:, 1],
+        dot(a0, a0) * m, dot(a0, a1) * m, dot(a1, a1) * m,
+        dot(a0, wz) * m, dot(a1, wz) * m, dot(wz, wz) * m,
+    ])  # (10, N)
+    return rows.to(torch.float32).contiguous()
+
+
+def pack_reproj(data: ReprojectionData) -> Tensor:
+    """(N, ...) SoA -> packed transposed (6, N) float32 rows. The JAX
+    package's ``pack_reproj`` adds 2 zero rows, sublane padding for the
+    TPU; they carry nothing and are left out."""
+    rows = torch.cat([data.local_points, data.matched_pixels, data.mask[:, None]], dim=1)
+    return rows.T.to(torch.float32).contiguous()
+
+
 def pack_p2p(data: PointToPlaneData) -> Tensor:
     """(N, ...) SoA -> packed transposed (10, N) float32 rows. The JAX
     package's ``pack_p2p`` adds 6 zero rows, sublane padding for the TPU;
@@ -443,8 +611,8 @@ def pack_p2p(data: PointToPlaneData) -> Tensor:
     return rows.T.to(torch.float32).contiguous()
 
 
-def _eval(name, params_fn, dim, rotation, translation, packed, loss):
-    code, loss_ab = maha6_loss_ab(loss, packed.device)
+def _eval(name, params_fn, dim, rotation, translation, packed, loss, loss_ab_fn=maha6_loss_ab):
+    code, loss_ab = loss_ab_fn(loss, packed.device)
     params = params_fn(rotation, translation, loss_ab)
     lead = packed.dim() == 2  # one problem
     params = params[None] if lead else params.contiguous()
@@ -487,6 +655,26 @@ def maha3_eval_quadratic_packed_v(rotation2, translation2, packed, loss):
 def maha3_eval_quadratic(rotation2, translation2, data: MahalanobisData, loss):
     """Drop-in replacement for ops.mahalanobis.eval_quadratic_3dof."""
     return maha3_eval_quadratic_packed(rotation2, translation2, pack_maha6(data), loss)
+
+
+def maha3_eval_quadratic_compact(rotation2, translation2, packed_compact, loss):
+    """(H (3, 3), g (3,), cost) from one (10, N) compact buffer
+    (:func:`pack_maha3_compact`): the counterpart of ``_maha3c_pallas``.
+    Agrees with :func:`maha3_eval_quadratic_packed` to float32 rounding:
+    the Gram form reassociates the row-by-row sum."""
+    return _eval("maha3c", maha3_params, 3, rotation2, translation2, packed_compact, loss)
+
+
+def reproj_eval_quadratic_packed(rotation, translation, packed, intrinsics, loss):
+    """(H (6, 6), g (6,), cost) from one (6, N) packed buffer: the
+    counterpart of ``_reproj_pallas``."""
+    params_fn = lambda R, t, loss_ab: reproj_params(R, t, intrinsics, loss_ab)
+    return _eval("reproj", params_fn, 6, rotation, translation, packed, loss, reproj_loss_ab)
+
+
+def reproj_eval_quadratic(rotation, translation, data: ReprojectionData, intrinsics, loss):
+    """Drop-in replacement for ops.reprojection.eval_quadratic."""
+    return reproj_eval_quadratic_packed(rotation, translation, pack_reproj(data), intrinsics, loss)
 
 
 def p2p_eval_quadratic_packed(rotation, translation, packed, loss):

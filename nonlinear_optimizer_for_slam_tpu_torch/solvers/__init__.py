@@ -1,6 +1,11 @@
 from . import linear, lm, manifolds, minimizers
 from .lm import IterationRecord, Summary
-from .minimizers import MahalanobisDistanceMinimizer, PointToPlaneMinimizer
+from .minimizers import (
+    MahalanobisDistanceMinimizer,
+    MahalanobisDistanceMinimizer3DOF,
+    PointToPlaneMinimizer,
+    ReprojectionErrorMinimizer,
+)
 
 __all__ = [
     "linear",
@@ -9,6 +14,8 @@ __all__ = [
     "minimizers",
     "IterationRecord",
     "MahalanobisDistanceMinimizer",
+    "MahalanobisDistanceMinimizer3DOF",
     "PointToPlaneMinimizer",
+    "ReprojectionErrorMinimizer",
     "Summary",
 ]

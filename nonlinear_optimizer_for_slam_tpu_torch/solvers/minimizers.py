@@ -1,16 +1,18 @@
-"""User-facing minimizer classes (PyTorch port of the 6-DoF parts of the
-JAX package's ``solvers/minimizers.py``).
+"""User-facing minimizer classes (PyTorch port of the single-pose solvers
+of the JAX package's ``solvers/minimizers.py``).
 
-``MahalanobisDistanceMinimizer`` mirrors the reference's
-``MahalanobisDistanceMinimizer*::Solve``; ``PointToPlaneMinimizer`` solves
+``MahalanobisDistanceMinimizer`` and ``MahalanobisDistanceMinimizer3DOF``
+mirror the reference's ``MahalanobisDistanceMinimizer*::Solve`` (6-DoF and
+planar 3-DoF), ``ReprojectionErrorMinimizer`` its
+``ReprojectionErrorMinimizer*::Solve``; ``PointToPlaneMinimizer`` solves
 the point-to-plane objective. Each class takes ``backend=``:
 
-- ``"torch"``: plain PyTorch evaluation (``ops/mahalanobis.eval_quadratic``
-  or ``ops/point_to_plane.eval_quadratic``, the counterpart of the JAX
-  ``"jnp"`` backend), on any device and dtype;
-- ``"cuda"``: the hand-written kernel, maha6 or p2p (``ops/cuda_kernels``,
-  the counterpart of the JAX ``"pallas"`` backend), float32 on a CUDA
-  device.
+- ``"torch"``: plain PyTorch evaluation (the ``eval_quadratic`` functions
+  of ``ops/mahalanobis``, ``ops/reprojection`` and ``ops/point_to_plane``,
+  the counterpart of the JAX ``"jnp"`` backend), on any device and dtype;
+- ``"cuda"``: the hand-written kernel, maha6, maha3c, reproj or p2p
+  (``ops/cuda_kernels``, the counterpart of the JAX ``"pallas"``
+  backend), float32 on a CUDA device.
 
 On a CUDA device the default backend is ``"cuda"``, on the CPU ``"torch"``.
 Correspondence counts are padded to ``pad_multiple`` with masked rows, as in
@@ -29,9 +31,10 @@ from ..core.device import resolve_device
 from ..core.losses import LossFunction
 from ..core.options import Options
 from ..core.pose import Pose, np_quat_to_rotmat, np_rotmat_to_quat
-from ..ops import cuda_kernels, mahalanobis, point_to_plane
+from ..ops import cuda_kernels, mahalanobis, point_to_plane, reprojection
+from ..ops.reprojection import CameraIntrinsics
 from . import lm
-from .manifolds import SE3Params, se3_retract
+from .manifolds import SE2Params, SE3Params, se2_retract, se3_retract
 
 Tensor = torch.Tensor
 
@@ -124,12 +127,15 @@ class _MinimizerBase:
                     else rotation / np.linalg.norm(rotation)
                 )
             wr = float(rotation_weight)
-        as_t = lambda v: torch.as_tensor(v, dtype=self.dtype, device=self.device)
+        as_t = self._as_tensor
         self.priors = SE3Priors(as_t(t), as_t(q), as_t(wt), as_t(wr))
         return self
 
     def _pad(self, n: int) -> int:
         return _round_up(max(n, 1), self.pad_multiple)
+
+    def _as_tensor(self, value) -> Tensor:
+        return torch.as_tensor(value, dtype=self.dtype, device=self.device)
 
 
 class MahalanobisDistanceMinimizer(_MinimizerBase):
@@ -142,7 +148,7 @@ class MahalanobisDistanceMinimizer(_MinimizerBase):
         data: mahalanobis.MahalanobisData,
         pose: Pose,
     ) -> Tuple[Pose, lm.Summary]:
-        as_t = lambda v: torch.as_tensor(v, dtype=self.dtype, device=self.device)
+        as_t = self._as_tensor
         t0 = as_t(pose.translation)
         q0 = as_t(pose.quaternion())
         data = data.astype(self.dtype).pad_to(self._pad(data.num_factors))
@@ -159,6 +165,91 @@ class MahalanobisDistanceMinimizer(_MinimizerBase):
         return _information_impl(self, data, pose, mahalanobis.eval_quadratic)
 
 
+class MahalanobisDistanceMinimizer3DOF(_MinimizerBase):
+    """3-DoF planar (x, y, yaw) NDT alignment
+    (reference: mahalanobis_distance_minimizer_analytic_3dof{,_simd}.cc).
+
+    Like the reference, takes and returns a full SE(3) pose: the planar
+    pose is the top-left block's yaw and the translation's xy
+    (.._analytic_3dof.cc:22-25), and the result overwrites only those, so
+    z, roll and pitch of the input pose pass through (:104-105)."""
+
+    def solve(
+        self,
+        options: Options,
+        data: mahalanobis.MahalanobisData,
+        pose: Pose,
+    ) -> Tuple[Pose, lm.Summary]:
+        t0 = self._as_tensor(pose.translation[:2])
+        theta0 = self._as_tensor(np.arctan2(pose.rotation[1, 0], pose.rotation[0, 0]))
+        planar_priors = None
+        if self.priors is not None:
+            # the SE(3) prior projected onto the plane: (x, y) and the yaw
+            # of the prior quaternion, as stored in the solve's dtype
+            pq = self.priors.quaternion.cpu().numpy().astype(np.float64)
+            planar_priors = (
+                self.priors.translation[:2],
+                self._as_tensor(2.0 * np.arctan2(pq[3], pq[0])),
+                self.priors.translation_weight,
+                self.priors.rotation_weight,
+            )
+        data = data.astype(self.dtype).pad_to(self._pad(data.num_factors))
+        params, summary = _maha3_solve(
+            t0, theta0, data, self.loss_function, planar_priors, options, self.backend
+        )
+        t2_theta = torch.cat([params.translation, params.theta[None]]).cpu().numpy()
+        out = pose.copy()
+        out.translation = out.translation.copy()
+        out.rotation = out.rotation.copy()
+        out.translation[:2] = np.asarray(t2_theta[:2], np.float64)
+        c, s = np.cos(float(t2_theta[2])), np.sin(float(t2_theta[2]))
+        out.rotation[:2, :2] = np.array([[c, -s], [s, c]])
+        return out, summary
+
+
+class ReprojectionErrorMinimizer(_MinimizerBase):
+    """6-DoF pose from 3D-2D correspondences
+    (reference: reprojection_error_minimizer_analytic{,_simd}.cc)."""
+
+    def _intrinsics(self, intrinsics: CameraIntrinsics) -> CameraIntrinsics:
+        """The intrinsics as scalar tensors of the solve: ``inv_fx`` is
+        cast as given (the reciprocal in the caller's precision), not
+        recomputed in the solve's dtype."""
+        return CameraIntrinsics(
+            *(self._as_tensor(v) for v in intrinsics[:6]),
+            intrinsics.width,
+            intrinsics.height,
+        )
+
+    def solve(
+        self,
+        options: Options,
+        data: reprojection.ReprojectionData,
+        intrinsics: CameraIntrinsics,
+        pose: Pose,
+    ) -> Tuple[Pose, lm.Summary]:
+        data = data.astype(self.dtype).pad_to(self._pad(data.num_factors))
+        params, summary = _reproj_solve(
+            self._as_tensor(pose.translation), self._as_tensor(pose.quaternion()),
+            data, self._intrinsics(intrinsics), self.loss_function, self.priors,
+            options, self.backend,
+        )
+        return _pose_from_params(params), summary
+
+    def information(
+        self,
+        data: reprojection.ReprojectionData,
+        intrinsics: CameraIntrinsics,
+        pose: Pose,
+    ) -> np.ndarray:
+        """Gauss-Newton information of the reprojection objective at
+        ``pose`` (PnP uncertainty; see
+        :meth:`MahalanobisDistanceMinimizer.information`)."""
+        return _information_impl(
+            self, data, pose, reprojection.eval_quadratic, self._intrinsics(intrinsics)
+        )
+
+
 class PointToPlaneMinimizer(_MinimizerBase):
     """6-DoF point-to-plane ICP (factor math from the reference's
     pose_optimizer/cost_functors.h:106-157)."""
@@ -169,7 +260,7 @@ class PointToPlaneMinimizer(_MinimizerBase):
         data: point_to_plane.PointToPlaneData,
         pose: Pose,
     ) -> Tuple[Pose, lm.Summary]:
-        as_t = lambda v: torch.as_tensor(v, dtype=self.dtype, device=self.device)
+        as_t = self._as_tensor
         data = data.astype(self.dtype).pad_to(self._pad(data.num_factors))
         params, summary = _p2p_solve(
             as_t(pose.translation), as_t(pose.quaternion()), data,
@@ -183,13 +274,19 @@ class PointToPlaneMinimizer(_MinimizerBase):
         return _information_impl(self, data, pose, point_to_plane.eval_quadratic)
 
 
-def _information_impl(minimizer: _MinimizerBase, data, pose: Pose, eval_quadratic) -> np.ndarray:
+def _information_impl(
+    minimizer: _MinimizerBase, data, pose: Pose, eval_quadratic, intrinsics=None
+) -> np.ndarray:
     """H of ``eval_quadratic`` (the plain evaluation, on every backend) at
-    ``pose``, on data cast and padded as a solve would see it."""
-    as_t = lambda v: torch.as_tensor(v, dtype=minimizer.dtype, device=minimizer.device)
+    ``pose``, on data cast and padded as a solve would see it; the
+    reprojection objective also takes the solve's ``intrinsics``."""
+    as_t = minimizer._as_tensor
     data = data.astype(minimizer.dtype).pad_to(minimizer._pad(data.num_factors))
     R = lie.quat_to_rotmat(lie.quat_normalize(as_t(pose.quaternion())))
-    H, _, _ = eval_quadratic(R, as_t(pose.translation), data, minimizer.loss_function)
+    camera = () if intrinsics is None else (intrinsics,)
+    H, _, _ = eval_quadratic(
+        R, as_t(pose.translation), data, *camera, minimizer.loss_function
+    )
     return H.cpu().numpy().astype(np.float64)
 
 
@@ -235,6 +332,79 @@ def _maha6_solve(
 
     else:
         eval_fn = lambda R, t: mahalanobis.eval_quadratic(R, t, data, loss)
+
+    def quad(params: SE3Params):
+        R = lie.quat_to_rotmat(params.quaternion)
+        H, g, c = eval_fn(R, params.translation)
+        return _add_se3_priors(H, g, c, params, priors)
+
+    return lm.solve(quad, se3_retract, SE3Params(t0, q0), options)
+
+
+def _maha3_solve(
+    t0: Tensor,
+    theta0: Tensor,
+    data: mahalanobis.MahalanobisData,
+    loss: Optional[LossFunction],
+    priors: Optional[Tuple[Tensor, Tensor, Tensor, Tensor]],
+    options: Options,
+    backend: str,
+) -> Tuple[SE2Params, lm.Summary]:
+    """One planar LM solve on data already cast and padded. ``priors`` is
+    (t2 prior, yaw prior, translation weight, yaw weight) or None."""
+    if backend == "cuda":
+        # the compact 10-row Gram packing, built once per solve: 40 bytes a
+        # factor against the 16-row layout's 64
+        packed = cuda_kernels.pack_maha3_compact(data)[None]
+        code, loss_ab = cuda_kernels.maha6_loss_ab(loss, packed.device)
+
+        def eval_fn(R2, t2):
+            params = cuda_kernels.maha3_params(R2, t2, loss_ab)[None]
+            out = cuda_kernels.maha3c_partials(params, packed, code)[0]
+            return cuda_kernels.unpack_out(out.to(t0.dtype), 3)
+
+    else:
+        eval_fn = lambda R2, t2: mahalanobis.eval_quadratic_3dof(R2, t2, data, loss)
+
+    def quad(params: SE2Params):
+        H, g, c = eval_fn(lie.rot2(params.theta), params.translation)
+        if priors is not None:
+            t2p, thp, wt, wr = priors
+            rt = params.translation - t2p
+            # the yaw residual wrapped to (-pi, pi]
+            rth = params.theta - thp
+            rth = torch.atan2(torch.sin(rth), torch.cos(rth))
+            H = H + torch.diag(torch.stack([wt, wt, wr]))
+            g = g + torch.cat([wt * rt, (wr * rth)[None]])
+            c = c + wt * torch.dot(rt, rt) + wr * rth * rth
+        return H, g, c
+
+    return lm.solve(quad, se2_retract, SE2Params(t0, theta0), options)
+
+
+def _reproj_solve(
+    t0: Tensor,
+    q0: Tensor,
+    data: reprojection.ReprojectionData,
+    intrinsics: CameraIntrinsics,
+    loss: Optional[LossFunction],
+    priors: Optional[SE3Priors],
+    options: Options,
+    backend: str,
+) -> Tuple[SE3Params, lm.Summary]:
+    """One PnP LM solve on data already cast and padded, with the
+    intrinsics as scalar tensors of the solve."""
+    if backend == "cuda":
+        packed = cuda_kernels.pack_reproj(data)[None]
+        code, loss_ab = cuda_kernels.reproj_loss_ab(loss, packed.device)
+
+        def eval_fn(R, t):
+            params = cuda_kernels.reproj_params(R, t, intrinsics, loss_ab)[None]
+            out = cuda_kernels.reproj_partials(params, packed, code)[0]
+            return cuda_kernels.unpack_out(out.to(t0.dtype), 6)
+
+    else:
+        eval_fn = lambda R, t: reprojection.eval_quadratic(R, t, data, intrinsics, loss)
 
     def quad(params: SE3Params):
         R = lie.quat_to_rotmat(params.quaternion)

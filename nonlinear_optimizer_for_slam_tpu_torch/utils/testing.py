@@ -1,5 +1,6 @@
 """Deterministic synthetic fixtures mirroring the reference test worlds (a
-numpy copy of the NDT part of the JAX package's ``utils/testing.py``).
+numpy copy of the NDT and reprojection parts of the JAX package's
+``utils/testing.py``), and the reference oracle traces.
 
 The generators reproduce the C++ loops' accumulated floating-point stepping
 (``for (x = a; x <= b; x += step)`` accumulates rounding error, which
@@ -8,9 +9,12 @@ determines how many grid samples are generated).
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
 from ..core.pose import Pose
+from ..ops.reprojection import CameraIntrinsics
 
 
 def _accum_range(start: float, stop: float, step: float) -> np.ndarray:
@@ -67,11 +71,38 @@ def maha_3dof6dof_true_pose() -> Pose:
     return Pose.from_axis_angle(0.2, [0.0, 0.0, 1.0], [-0.15, 0.05, 0.0])
 
 
-# Oracle traces of 6-DoF NDT registration on the full room fixture (copies
-# of tests/test_trace_parity.py's constants): the reference sources
-# compiled unmodified, with exact brute-force matching and
-# ExponentialLoss(1, 1). (cost, inner iterations) per outer iteration; cost
-# None where the reference prints its never-updated previous_cost.
+def generate_reprojection_fixture() -> Tuple[np.ndarray, np.ndarray, CameraIntrinsics, Pose]:
+    """Planar 3D grid at z=3 projected into a 640x480 pinhole camera
+    (reference: reproj tests/simple_optimization_test.cc:43-72,115-158).
+
+    Returns (reference_points (N,3), matched_pixels (N,2), intrinsics,
+    true_pose). Correspondences pair each reference point with the pixel of
+    its warp into the query frame (true_pose^{-1})."""
+    xs = _accum_range(-1.5, 1.5, 0.1)
+    ys = _accum_range(-1.0, 1.0, 0.1)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    points = np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, 3.0)], axis=1)
+
+    intrinsics = CameraIntrinsics.create(525.0, 525.0, 320.0, 240.0, 640, 480)
+    true_pose = Pose.from_axis_angle(0.1, [0.0, 0.0, 1.0], [-0.1, 0.123, -0.5])
+
+    query = true_pose.inverse().apply(points)
+    inv_z = 1.0 / query[:, 2]
+    pixels = np.stack(
+        [
+            525.0 * query[:, 0] * inv_z + 320.0,
+            525.0 * query[:, 1] * inv_z + 240.0,
+        ],
+        axis=1,
+    )
+    return points, pixels, intrinsics, true_pose
+
+
+# Oracle traces of NDT registration on the full room fixture (copies of
+# tests/test_trace_parity.py's constants): the reference sources compiled
+# unmodified, with exact brute-force matching and ExponentialLoss(1, 1).
+# (cost, inner iterations) per outer iteration; cost None where the
+# reference prints its never-updated previous_cost.
 ORACLE_SIMPLE_6DOF = {
     "trace": [(17450.5, 40), (17393.3, 40), (17492.4, 21), (17491.4, 2)],
     "outer": 3,
@@ -89,6 +120,47 @@ ORACLE_3DOF6DOF_6DOF = {
     "outer": 4,
     "translation": [-0.145656518, 0.048385010, 0.004836333],
     "quat_xyzw": [-0.000165989, -0.001242575, 0.099826030, 0.995004117],
+}
+# The planar 3-DoF solver on the 3dof_6dof fixture. The reference's scalar
+# 3-DoF solver drops the n % 4 tail correspondences (each costs at most 1.0
+# under the exponential loss), so its costs are checked with cost_atol 4.0.
+ORACLE_3DOF6DOF_3DOF = {
+    "trace": [
+        (17870.2, 40),
+        (17630.2, 40),
+        (17607.4, 21),
+        (17599.3, 6),
+        (None, 0),
+    ],
+    "outer": 4,
+    "translation": [-0.150055931, -0.043362789, 0.0],
+    "quat_xyzw": [0.0, 0.0, 0.099344065, 0.995053143],
+}
+
+# The reference's ReprojectionErrorMinimizerAnalytic on the fixture of
+# generate_reprojection_fixture from the identity, ExponentialLoss(1, 1),
+# default Options: (cost, lambda) per inner LM iteration, 12 significant
+# digits. The reference's "COST:" print is previous_cost (it lags one
+# iteration).
+ORACLE_REPROJ = {
+    "trace": [
+        (3.55444881972, 1e-3),
+        (0.0515859202783, 6e-4),
+        (2.35978629949e-05, 3.6e-4),
+        (3.42025160971e-07, 2.16e-4),
+        (4.4035399771e-09, 1.296e-4),
+        (2.33227881452e-11, 7.776e-5),
+        (3.96349619791e-14, 4.6656e-5),
+    ],
+    "reported_cost": 2.33227881452e-11,
+    "iterations": 6,
+    "translation": [0.0872209073462274, -0.132368839193207, 0.500000000181493],
+    "quat_wxyz": [
+        0.99875026039451,
+        2.38636198343075e-09,
+        -5.42420928460359e-11,
+        -0.0499791692798031,
+    ],
 }
 
 
@@ -113,3 +185,23 @@ def check_oracle(result, oracle, *, cost_atol: float = 0.1, pose_atol: float = 1
     q_ref = np.asarray(oracle["quat_xyzw"])
     np.testing.assert_allclose(q[1:], q_ref[:3], atol=pose_atol)
     np.testing.assert_allclose(q[0], q_ref[3], atol=pose_atol)
+
+
+def check_reprojection_oracle(pose: Pose, summary, oracle, rtol: float = 1e-9):
+    """Raise AssertionError unless a reprojection solve reproduces an
+    oracle trace: the iteration count exactly, every recorded (cost,
+    lambda) and the reported cost within ``rtol`` (1e-9 is about the
+    12-digit print quantum) and the pose within 1e-9."""
+    assert int(summary.iterations) == oracle["iterations"], (
+        int(summary.iterations), oracle["iterations"]
+    )
+    cost = summary.records.cost.cpu().numpy()
+    lam = summary.records.lam.cpu().numpy()
+    for i, (ec, elam) in enumerate(oracle["trace"]):
+        np.testing.assert_allclose(cost[i], ec, rtol=rtol, err_msg=f"cost {i}")
+        np.testing.assert_allclose(lam[i], elam, rtol=rtol, err_msg=f"lambda {i}")
+    np.testing.assert_allclose(
+        float(summary.reported_cost), oracle["reported_cost"], rtol=rtol
+    )
+    np.testing.assert_allclose(pose.translation, oracle["translation"], atol=1e-9)
+    np.testing.assert_allclose(pose.quaternion(), oracle["quat_wxyz"], atol=1e-9)

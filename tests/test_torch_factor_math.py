@@ -1,11 +1,12 @@
 """The kernels' per-factor arithmetic, checked on the CPU.
 
 ``csrc/factor_math.cuh`` holds the arithmetic of one factor of each kernel
-(maha6, maha3, p2p: the robust loss, r, J and the products) as
-``__host__ __device__`` code. nvcc builds it into the CUDA kernels; here g++
-builds the same header into a tiny harness, whose per-factor terms must
-agree with the plain PyTorch versions (``ops.cuda_kernels.maha6_terms``,
-``maha3_terms``, ``p2p_terms``) for all 7 losses. So the kernels'
+(maha6, maha3, maha3c, reproj, p2p: the robust loss, r, J and the
+products) as ``__host__ __device__`` code. nvcc builds it into the CUDA
+kernels; here g++ builds the same header into a tiny harness, whose
+per-factor terms must agree with the plain PyTorch versions
+(``ops.cuda_kernels.maha6_terms``, ``maha3_terms``, ``maha3c_terms``,
+``reproj_terms``, ``p2p_terms``) for all 7 losses. So the kernels'
 arithmetic is checked on a machine without a GPU.
 """
 
@@ -20,6 +21,8 @@ import torch
 import nonlinear_optimizer_for_slam_tpu_torch as port
 from nonlinear_optimizer_for_slam_tpu_torch.core import lie
 from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+from nonlinear_optimizer_for_slam_tpu_torch.ops import mahalanobis as tmaha
+from nonlinear_optimizer_for_slam_tpu_torch.ops import reprojection as treproj
 
 CSRC = Path(port.__file__).resolve().parent / "csrc"
 
@@ -43,6 +46,8 @@ HARNESS = r"""
 FACTOR(maha6, kMaha6, nls::kMaha6Rows)
 FACTOR(maha3, kMaha3, nls::kMaha6Rows)
 FACTOR(p2p, kP2p, nls::kP2pRows)
+FACTOR(maha3c, kMaha3c, nls::kMaha3cRows)
+FACTOR(reproj, kReproj, nls::kReprojRows)
 
 // each factor's kOut terms on their own
 template <class F, int kLoss>
@@ -84,7 +89,7 @@ int main_for(FILE* in, const char* out_path) {
   return 0;
 }
 
-// harness IN OUT [maha6 | maha3 | p2p]
+// harness IN OUT [maha6 | maha3 | p2p | maha3c | reproj]
 int main(int argc, char** argv) {
   if (argc != 3 && argc != 4) return 2;
   FILE* in = std::fopen(argv[1], "rb");
@@ -94,6 +99,8 @@ int main(int argc, char** argv) {
   if (!std::strcmp(kind, "maha6")) rc = main_for<maha6>(in, argv[2]);
   if (!std::strcmp(kind, "maha3")) rc = main_for<maha3>(in, argv[2]);
   if (!std::strcmp(kind, "p2p")) rc = main_for<p2p>(in, argv[2]);
+  if (!std::strcmp(kind, "maha3c")) rc = main_for<maha3c>(in, argv[2]);
+  if (!std::strcmp(kind, "reproj")) rc = main_for<reproj>(in, argv[2]);
   std::fclose(in);
   return rc;
 }
@@ -135,6 +142,21 @@ def factors(rng):
     q /= np.linalg.norm(q)
     pose = port.Pose.from_quat_trans(q, rng.normal(size=3))
     return packed, pose
+
+
+def _run_harness(harness, kernel, code, params, rows, n_out):
+    """The header's per-factor terms, (N, n_out), for (params,) float32 and
+    rows (kRows, N)."""
+    exe, tmp = harness
+    n = rows.shape[1]
+    inp = tmp / f"in_{kernel}_{code}.bin"
+    out = tmp / f"out_{kernel}_{code}.bin"
+    with open(inp, "wb") as f:
+        f.write(np.asarray([code, n], np.int32).tobytes())
+        f.write(params.numpy().astype(np.float32).tobytes())
+        f.write(np.ascontiguousarray(rows.T).tobytes())
+    subprocess.run([str(exe), str(inp), str(out), kernel], check=True, timeout=60)
+    return np.fromfile(out, np.float32).reshape(n, n_out)
 
 
 @pytest.mark.parametrize("loss", LOSSES, ids=lambda l: type(l).__name__)
@@ -201,5 +223,38 @@ def test_planar_and_p2p_headers_match_plain_terms(harness, factors, kernel, loss
         f.write(np.ascontiguousarray(rows.T).tobytes())
     subprocess.run([str(exe), str(inp), str(out), kernel], check=True, timeout=60)
     got = np.fromfile(out, np.float32).reshape(n, n_out)
+    want = terms(params[None], torch.as_tensor(rows)[None], code)[0].T.numpy()
+    _assert_terms_close(got, want)
+
+
+@pytest.mark.parametrize("loss", LOSSES, ids=lambda l: type(l).__name__)
+@pytest.mark.parametrize("kernel", ["maha3c", "reproj"])
+def test_compact_and_reproj_headers_match_plain_terms(harness, factors, kernel, loss):
+    """maha3c_accumulate over the compact Gram rows that pack_maha3_compact
+    makes of the maha6 rows (masked factors included); reproj_accumulate
+    over 3D-2D rows, a tenth of them behind the 0.03 depth gate."""
+    packed, pose = factors
+    n = packed.shape[1]
+    if kernel == "maha3c":
+        code, loss_ab = ck.maha6_loss_ab(loss, "cpu")
+        q = pose.quaternion()
+        R2 = lie.rot2(torch.tensor(2.0 * np.arctan2(q[3], q[0]), dtype=torch.float32))
+        params = ck.maha3_params(R2, torch.as_tensor(pose.translation[:2], dtype=torch.float32), loss_ab)
+        rows = ck.pack_maha3_compact(tmaha.unpack_maha6(torch.as_tensor(packed))).numpy()
+        n_out, terms = 10, ck.maha3c_terms
+    else:
+        code, loss_ab = ck.reproj_loss_ab(loss, "cpu")
+        intr = treproj.CameraIntrinsics.create(525.0, 525.0, 320.0, 240.0)
+        small = port.Pose.from_axis_angle(0.1, pose.rotation[:, 0], 0.1 * pose.translation)
+        params = ck.reproj_params(
+            torch.as_tensor(small.rotation, dtype=torch.float32),
+            torch.as_tensor(small.translation, dtype=torch.float32), intr, loss_ab,
+        )
+        X = packed[0:3] + np.array([[0.0], [0.0], [4.0]], np.float32)
+        X[2, : n // 10] = np.linspace(-1.0, 0.1, n // 10)  # near or behind the gate
+        pixels = 320.0 + 100.0 * packed[3:5]
+        rows = np.concatenate([X, pixels, packed[15:16]]).astype(np.float32)
+        n_out, terms = 28, ck.reproj_terms
+    got = _run_harness(harness, kernel, code, params, rows, n_out)
     want = terms(params[None], torch.as_tensor(rows)[None], code)[0].T.numpy()
     _assert_terms_close(got, want)
