@@ -9,14 +9,15 @@ on the full room fixture the host-driven 6-DoF NDT registration
 (``register_ndt``), the device-resident ``NdtRegistrar`` (6-DoF, planar,
 point-to-plane and a lockstep batch of 16 scans) and the planar 3-DoF
 minimizer under ``register_ndt``; on the reference's PnP fixture the
-reprojection minimizer. maha6 and maha3, the one-launch kernels of
-``csrc/onepass.cuh``, are also held to their plain versions at edge sizes
-of N, over 1,000 launches that alternate between two shapes, on a second
-stream, replayed from CUDA graphs (two of them at once on two streams,
-beside eager calls), and timed against the two-pass design they replace
-and against an empty kernel's launch. It checks the f64 path against the reference oracle
-traces, and times the kernels and the paths. Every phase prints one JSON
-line; a phase that fails ends the run with a non-zero exit code.
+reprojection minimizer. maha6, maha3, maha3c and p2p, the one-launch
+kernels of ``csrc/onepass.cuh``, are also held to their plain versions at
+edge sizes of N, over 1,000 launches that alternate between two shapes, on
+a second stream, replayed from CUDA graphs (two of them at once on two
+streams, beside eager calls), and timed against the two-pass design they
+replace and against an empty kernel's launch. It checks the f64 path
+against the reference oracle traces, and times the kernels and the paths.
+Every phase prints one JSON line; a phase that fails ends the run with a
+non-zero exit code.
 The line before the last is the ``kernels`` summary, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -769,7 +770,9 @@ def main() -> int:
         },
         device=name, nvidia_smi=smi,
     )
-    emit("planar_profile", **_profile(run_planar))
+    prof = _profile(run_planar)
+    emit("planar_profile", device_kernels_per_lm_evaluation=prof["device_kernels"] / planar_evals,
+         **prof)
 
     # ---- 7. the registrar's timings (descriptive) ---------------------------
     timing = {}
@@ -787,9 +790,11 @@ def main() -> int:
         objectives=timing, batch16_ms_per_scan=statistics.median(batch_w) / B,
         batch16_median_ms=statistics.median(batch_w), device=name, nvidia_smi=smi,
     )
-    prof = _profile(lambda: reg_m.register(local_m, init_m))
-    emit("registrar_profile", objective="maha",
-         device_kernels_per_step=prof["device_kernels"] / reg_m.run_stats()["steps"], **prof)
+    for objective in ("maha", "p2p"):
+        reg, scan_local, init, _ = runs[objective]
+        prof = _profile(lambda: reg.register(scan_local, init))
+        emit("registrar_profile", objective=objective,
+             device_kernels_per_step=prof["device_kernels"] / reg.run_stats()["steps"], **prof)
     # what K, the steps per block, trades: wasted steps against host reads
     fused = port.pipelines.fused_registration
     default_k, sweep = fused.BLOCK_STEPS, {}
@@ -823,8 +828,9 @@ def main() -> int:
         emit("kernel_timing", **row)
         return row
 
-    for kernel in ("maha3c", "reproj"):  # where bytes, not launches, bound them
-        time_kernel(kernel, *cases[kernel]["ragged_n1000003"])
+    # where bytes, not launches, bound it (the one-pass kernels' large-N
+    # times are in onepass_ab)
+    time_kernel("reproj", *cases["reproj"]["ragged_n1000003"])
 
     # the one-pass kernels against the two-pass design they replace, in
     # turns, and an empty kernel through the same ctypes path: the launch
@@ -841,12 +847,13 @@ def main() -> int:
             ladder[f"{kernel}/n{n}"] = _time_ms(
                 lambda: partials[kernel](params, packed, code), 200
             )[0]
-        for label, (contiguous, poses) in (
-            ("n18712", cases[kernel][main_case[kernel]]),
-            ("n1000003", (random_packed(kernel, 1_000_003)[None], [rand_pose])),
+        for packed, poses in (
+            cases[kernel][main_case[kernel]],
+            (random_packed(kernel, 1_000_003)[None], [rand_pose]),
         ):
+            label = f"n{packed.shape[-1]}"
             code, params = params_of(kernel, poses, loss)
-            aligned = ck.lane_aligned(contiguous)
+            contiguous, aligned = packed.contiguous(), ck.lane_aligned(packed)
             designs = {
                 "two_pass": lambda: ck._partials_two_pass(kernel, params, contiguous, code),
                 "one_pass": lambda: partials[kernel](params, aligned, code),
@@ -992,10 +999,13 @@ def _profile(fn) -> dict:
         reverse=True,
     )
     device_ms = sum(r[0] for r in rows) / 1000.0
+    # the port's own kernels by name, template arguments kept (which
+    # factor, one-pass or two-pass), argument list cut
+    port_kernels = {k[: k.find(">(") + 1]: c for _, k, c in rows if "nls::" in k}
     return dict(
         wall_ms=wall_ms, device_busy_ms=device_ms,
         device_idle_share=(1.0 - device_ms / wall_ms) if device_ms else None,
-        device_kernels=sum(r[2] for r in rows),
+        device_kernels=sum(r[2] for r in rows), port_kernels=port_kernels,
         top_device=[{"name": k[:80], "ms": us / 1000.0, "count": c} for us, k, c in rows[:10]],
         top_host=[{"name": k[:80], "ms": us / 1000.0, "count": c} for us, k, c in host[:10]],
     )

@@ -10,21 +10,35 @@
 // values. The Gram form reassociates maha3's row-by-row sum of |S e|^2, so
 // the two agree to float32 rounding, not bit for bit.
 //
-// params (B, 8): [R2 row-major 4, t2 2, loss a, loss b], those of maha3. The
-// per-factor arithmetic is maha3c_accumulate in factor_math.cuh; the
-// two-pass fixed-order reduction (bitwise repeatable) is partials.cuh.
+// params (B, 8): [R2 row-major 4, t2 2, loss a, loss b], those of maha3.
+// Rows of packed start every ld floats (ld a multiple of 4). The per-factor
+// arithmetic is maha3c_accumulate in factor_math.cuh; the one-launch
+// fixed-order reduction (bitwise repeatable, invariant to trailing zero
+// lanes) is onepass.cuh.
+//
+// No mask row: a masked factor, and a zero lane below N (the planar
+// minimizer pads 18,712 correspondences to 19,456), has M, v and szz equal
+// to +0 or -0, so |r|^2 is a zero, rho(0) is a zero for all 7 losses and
+// every term is a zero. Sums start at +0, and adding +0 or -0 to a float
+// leaves its bits alone: such a lane adds nothing, wherever it lies.
 //
 // Why CUDA C++ and not Triton: the arithmetic lives in a __host__ __device__
 // header that g++ builds into a CPU test harness, so the kernel's
 // arithmetic is checked on machines without a GPU; the build is a few
 // seconds of nvcc with a plain C interface.
 //
-// Bound on an H100 SXM (3.35 TB/s). Each factor reads 40 B (10 rows of
-// 4 B), against 64 B for maha3's rows, and does about 60 float operations:
-// bound by bytes at large N. At the planar minimizer's N (18,712
-// correspondences padded to 19,456) that is 0.78 MB, 0.23 us at
-// 3.35 TB/s; like the other kernels, the call is bound by the latency of
-// its two launches at these sizes, not by bytes or operations.
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the tensor
+// cores). Each factor reads 40 B (10 rows of 4 B), against 64 B for maha3's
+// rows, and does about 76 float operations: bytes bound it.
+// - At the main path's N = 18,712 the buffer is 0.75 MB: 0.22 us of bytes
+//   and 0.02 us of operations, far below the latency of a launch. The
+//   design takes one launch (the last block adds the tile sums) instead of
+//   two, spreads the 37 tiles of 512 lanes over 37 SMs, and reduces the 10
+//   outputs of a warp in 16 shuffles instead of 50.
+// - At N = 1,000,003 the buffer is 40 MB: 11.9 us of bytes. The design
+//   streams aligned vector loads from as many persistent blocks as the card
+//   holds, each loading its next tile while it reduces the current one.
+#include "onepass.cuh"
 #include "partials.cuh"
 
 namespace {
@@ -43,16 +57,25 @@ struct Maha3c {
 
 extern "C" {
 
-int nls_maha3c_num_blocks(int64_t n) { return nls::num_blocks(n); }
-
-// See nls::launch in partials.cuh: params (batch, 8), packed
-// (batch, 10, n), partials (batch, nls_maha3c_num_blocks(n), 10), out
-// (batch, 10).
-int nls_maha3c_launch(int device, const float* params, const float* packed,
-                      int batch, int64_t n, int loss_code, float* partials,
+// See nls::onepass::launch: params (batch, 8), packed (batch, 10, ld),
+// workspace (batch, 10, num_tiles(n)) floats, counters (batch,) zero,
+// out (batch, 10).
+int nls_maha3c_launch(int device, const float* params, const float* packed, int batch, int64_t n,
+                      int64_t ld, int loss_code, float* workspace, unsigned int* counters,
                       float* out, void* stream) {
-  return nls::launch<Maha3c>(device, params, packed, batch, n, loss_code,
-                             partials, out, stream);
+  return nls::onepass::launch<Maha3c>(device, params, packed, batch, n, ld, loss_code, workspace,
+                                      counters, out, stream);
+}
+
+// The two-pass design this file had before (partials.cuh), kept to time
+// against the one-pass kernel: packed (batch, 10, n) contiguous, partials
+// (batch, nls_maha3c_two_pass_num_blocks(n), 10).
+int nls_maha3c_two_pass_num_blocks(int64_t n) { return nls::num_blocks(n); }
+
+int nls_maha3c_two_pass_launch(int device, const float* params, const float* packed, int batch,
+                               int64_t n, int loss_code, float* partials, float* out,
+                               void* stream) {
+  return nls::launch<Maha3c>(device, params, packed, batch, n, loss_code, partials, out, stream);
 }
 
 }  // extern "C"

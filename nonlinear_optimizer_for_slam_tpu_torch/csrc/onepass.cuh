@@ -1,8 +1,8 @@
 // One-launch, fixed-order reduction of per-factor terms for Hopper, used by
-// maha6.cu and maha3.cu. A kernel file names its factor as a struct with
-// kRows, kParams, kOut and accumulate<kLoss>(prm, f, acc) (as for
-// partials.cuh) and exports nls::onepass::launch<Factor> through a plain C
-// function.
+// maha6.cu, maha3.cu, maha3c.cu and p2p.cu. A kernel file names its factor
+// as a struct with kRows, kParams, kOut and accumulate<kLoss>(prm, f, acc)
+// (as for partials.cuh) and exports nls::onepass::launch<Factor> through a
+// plain C function.
 //
 // Layout. packed is (B, kRows, ld) float32 with N <= ld lanes in use: row r
 // of problem b starts at (b kRows + r) ld. ld is a multiple of 4 and the
@@ -21,8 +21,8 @@
 //     are padded to kWidth (a power of two) and halved at shuffle offsets
 //     16, 8, ...: in each round a lane keeps one half of its values
 //     (keeps_upper) and adds its partner's copy of that half. Output k ends
-//     on lane owner(k): 31 shuffles for 28 outputs (maha6), 16 for 10
-//     (maha3), against 5 an output for a shuffle-down tree of each.
+//     on lane owner(k): 31 shuffles for 28 outputs (maha6, p2p), 16 for 10
+//     (maha3, maha3c), against 5 an output for a shuffle-down tree of each.
 //  3. The 8 warps' sums are added in warp order through shared memory, and
 //     the tile's sum goes to its own slot, tile_partials[b, k, tile].
 //  4. The last block of a problem to finish adds the tiles: lane j of the

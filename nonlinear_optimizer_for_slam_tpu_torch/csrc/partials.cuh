@@ -1,5 +1,7 @@
-// Two-pass, fixed-order reduction of per-factor terms, shared by the factor
-// kernels (maha6.cu, maha3.cu, p2p.cu). A kernel file names its factor as a
+// Two-pass, fixed-order reduction of per-factor terms: the reduction of
+// reproj.cu, and of the two-pass exports that maha6.cu, maha3.cu, maha3c.cu
+// and p2p.cu keep beside their one-pass kernels (onepass.cuh) to time the
+// two designs against each other. A kernel file names its factor as a
 // struct with kRows, kParams, kOut and a device function
 // accumulate<kLoss>(prm, f, acc) that adds one factor's kOut terms into acc
 // (csrc/factor_math.cuh), and exports nls::launch<Factor> through a plain C

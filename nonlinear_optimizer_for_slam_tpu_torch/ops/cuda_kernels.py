@@ -8,8 +8,8 @@ compact Gram rows), ``reproj`` (pinhole reprojection) and ``p2p``
 Jacobians, applies the robust-loss weight and reduces the per-factor
 (upper-triangle J^T J, J^T r, cost) terms, with nothing per-factor written
 to device memory. Sources: ``csrc/<name>.cu`` (per-factor math in
-``csrc/factor_math.cuh``; the one-launch reduction of maha6 and maha3 in
-``csrc/onepass.cuh``, the two-pass reduction of the others in
+``csrc/factor_math.cuh``; the one-launch reduction of maha6, maha3, maha3c
+and p2p in ``csrc/onepass.cuh``, the two-pass reduction of reproj in
 ``csrc/partials.cuh``), built by ``ops/_build.py``.
 
 Every kernel has a plain PyTorch version beside it, with the same
@@ -31,11 +31,11 @@ maha6 and p2p; (B, 8) [R2 row-major 4, t2 2, loss a, loss b] for maha3 and
 maha3c; (B, 20) [R row-major 9, t 3, inv_fx, inv_fy, cx, cy, loss a,
 loss b, min depth, 0] for reproj.
 
-On the card, maha6 and maha3 read rows that start on 16-byte boundaries,
-so their buffers are (B, 16, N) views whose rows start every ld floats, ld
-a multiple of 4, with the lanes past N zero: :func:`lane_aligned` makes
-one, and the packers call it for CUDA tensors. The other kernels take
-contiguous buffers.
+On the card, the one-pass kernels (:data:`ONE_PASS`) read rows that start
+on 16-byte boundaries, so their buffers are (B, rows, N) views whose rows
+start every ld floats, ld a multiple of 4, with the lanes past N zero:
+:func:`lane_aligned` makes one, and the packers call it for CUDA tensors.
+reproj takes contiguous buffers.
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ _SHAPES = {
 
 # The kernels built on csrc/onepass.cuh: one launch a call, rows that
 # start on 16-byte boundaries.
-ONE_PASS = ("maha6", "maha3")
+ONE_PASS = ("maha6", "maha3", "maha3c", "p2p")
 # Lanes of one tile (onepass.cuh: kTile), and the alignment of a row, in
 # floats.
 ONE_PASS_TILE = 512
@@ -495,8 +495,8 @@ _ONE_PASS_ARGS = [
 ]
 
 # C function -> (argtypes, restype), for every function the wrappers call:
-# the one-pass launches, the two-pass launches and block counts (of the
-# others, and of the design maha6 and maha3 had before), the empty kernel.
+# the one-pass launches, the two-pass launches and block counts (of reproj,
+# and of the design the one-pass kernels had before), the empty kernel.
 _TWO_PASS_PREFIXES = [f"nls_{k}" for k in _SHAPES if k not in ONE_PASS] + [
     f"nls_{k}_two_pass" for k in ONE_PASS
 ]
@@ -585,8 +585,8 @@ def _two_pass(name: str, prefix: str, params: Tensor, packed: Tensor, loss_code:
 
 
 def _partials(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
-    """Two-pass kernel ``name`` (maha3c, reproj or p2p) on (B, params) and
-    (B, rows, N) float32 -> (B, out) float32. CPU tensors take the plain
+    """Two-pass kernel ``name`` (reproj) on (B, params) and (B, rows, N)
+    float32 -> (B, out) float32. CPU tensors take the plain
     version; CUDA tensors launch the kernel on the current stream, without
     synchronising."""
     batch, n = _check(name, params, packed, loss_code)
@@ -598,9 +598,9 @@ def _partials(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tens
 
 
 def _partials_two_pass(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
-    """maha6 or maha3 through the two-pass design that preceded the one-pass
-    kernel (``csrc/partials.cuh``), on a contiguous CUDA (B, 16, N) buffer:
-    for timing the two designs against each other. Counts no launch;
+    """One-pass kernel ``name`` (:data:`ONE_PASS`) through the two-pass
+    design that preceded it (``csrc/partials.cuh``), on a contiguous CUDA
+    (B, rows, N) buffer: for timing the two designs against each other. Counts no launch;
     nothing on the main path calls it."""
     batch, n = _check(name, params, packed, loss_code)
     if packed.device.type != "cuda":
@@ -670,8 +670,8 @@ def _one_pass_ld(name: str, packed: Tensor) -> int:
 
 
 def _onepass(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
-    """One-pass kernel ``name`` (maha6 or maha3, ``csrc/onepass.cuh``) on
-    (B, params) and (B, 16, N) float32 -> (B, out) float32: one device
+    """One-pass kernel ``name`` (:data:`ONE_PASS`, ``csrc/onepass.cuh``) on
+    (B, params) and (B, rows, N) float32 -> (B, out) float32: one device
     kernel on the current stream, not synchronised. CPU tensors take the
     plain version. A CUDA buffer must be laid out as :func:`lane_aligned`
     makes it, or the call raises."""
@@ -752,8 +752,9 @@ def maha3_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
 def maha3c_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     """(B, 8) params and (B, 10, N) compact packed -> (B, 10) float32: per
     problem, the 6 upper-triangle entries of the planar H, the 3 of g and
-    the cost (``csrc/maha3c.cu``; the plain version on the CPU)."""
-    return _partials("maha3c", params, packed, loss_code)
+    the cost (``csrc/maha3c.cu``; the plain version on the CPU). A CUDA
+    buffer is laid out as :func:`lane_aligned` makes it."""
+    return _onepass("maha3c", params, packed, loss_code)
 
 
 def reproj_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
@@ -763,9 +764,11 @@ def reproj_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
 
 
 def p2p_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
-    """(B, 16) params and (B, 10, N) packed -> (B, 28) float32
-    (``csrc/p2p.cu``; the plain version on the CPU)."""
-    return _partials("p2p", params, packed, loss_code)
+    """(B, 16) params and (B, 10, N) packed -> (B, 28) float32: per
+    problem, the 21 upper-triangle entries of H, the 6 of g and the cost
+    (``csrc/p2p.cu``; the plain version on the CPU). A CUDA buffer is laid
+    out as :func:`lane_aligned` makes it."""
+    return _onepass("p2p", params, packed, loss_code)
 
 
 def unpack_out(out: Tensor, dim: int) -> Tuple[Tensor, Tensor, Tensor]:
@@ -804,7 +807,8 @@ def pack_maha3_compact(data: MahalanobisData) -> Tensor:
     rows r_i = a_i.(R2 u + t2 - mu_xy) + wz_i (a_i = S[i, :2],
     wz_i = S[i, 2] (p_z - mu_z)): M = sum_i a_i a_i^T, v = sum_i a_i wz_i,
     szz = sum_i wz_i^2. They are formed in the data's dtype and multiplied
-    by the mask before the cast, as in the JAX package. Once per solve."""
+    by the mask before the cast, as in the JAX package: contiguous on the
+    CPU, laid out by :func:`lane_aligned` on the card. Once per solve."""
     S = data.sqrt_infos
     a0, a1 = S[:, :, 0], S[:, :, 1]  # (N, 3): the columns a_i[0], a_i[1]
     wz = S[:, :, 2] * (data.points[:, 2] - data.means[:, 2])[:, None]
@@ -814,8 +818,8 @@ def pack_maha3_compact(data: MahalanobisData) -> Tensor:
         data.points[:, 0], data.points[:, 1], data.means[:, 0], data.means[:, 1],
         dot(a0, a0) * m, dot(a0, a1) * m, dot(a1, a1) * m,
         dot(a0, wz) * m, dot(a1, wz) * m, dot(wz, wz) * m,
-    ])  # (10, N)
-    return rows.to(torch.float32).contiguous()
+    ]).to(torch.float32)  # (10, N)
+    return lane_aligned(rows) if rows.is_cuda else rows.contiguous()
 
 
 def pack_reproj(data: ReprojectionData) -> Tensor:
@@ -827,11 +831,13 @@ def pack_reproj(data: ReprojectionData) -> Tensor:
 
 
 def pack_p2p(data: PointToPlaneData) -> Tensor:
-    """(N, ...) SoA -> packed transposed (10, N) float32 rows. The JAX
-    package's ``pack_p2p`` adds 6 zero rows, sublane padding for the TPU;
-    they carry nothing and are left out."""
+    """(N, ...) SoA -> packed transposed (10, N) float32 rows: contiguous on
+    the CPU, laid out by :func:`lane_aligned` on the card. The JAX package's
+    ``pack_p2p`` adds 6 zero rows, sublane padding for the TPU; they carry
+    nothing and are left out."""
     rows = torch.cat([data.points, data.means, data.normals, data.mask[:, None]], dim=1)
-    return rows.T.to(torch.float32).contiguous()
+    rows = rows.T.to(torch.float32)
+    return lane_aligned(rows) if rows.is_cuda else rows.contiguous()
 
 
 def _eval(name, params_fn, dim, rotation, translation, packed, loss, loss_ab_fn=maha6_loss_ab):

@@ -600,7 +600,9 @@ class NdtRegistrar:
         mu_rows = (pick(cand_mu) + self._centroid).mT  # (B, 3, N), un-centred
         n_rows = pick(cand_n).mT
         packed = torch.cat([points_T, mu_rows, n_rows, mask[:, None, :]], dim=1)
-        return packed.to(torch.float32).contiguous()
+        packed = packed.to(torch.float32)
+        # as in _match_maha: 16-byte-aligned rows for the kernel only
+        return ck.lane_aligned(packed) if self.eval_backend == "cuda" else packed.contiguous()
 
 
 def _norm(x: Tensor) -> Tensor:

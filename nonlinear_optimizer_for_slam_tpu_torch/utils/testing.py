@@ -1,6 +1,7 @@
 """Deterministic synthetic fixtures mirroring the reference test worlds (a
 numpy copy of the NDT and reprojection parts of the JAX package's
-``utils/testing.py``), and the reference oracle traces.
+``utils/testing.py``), the reference oracle traces, and a numpy emulation
+of the one-pass kernels' order of summation (``csrc/onepass.cuh``).
 
 The generators reproduce the C++ loops' accumulated floating-point stepping
 (``for (x = a; x <= b; x += step)`` accumulates rounding error, which
@@ -14,6 +15,7 @@ from typing import Tuple
 import numpy as np
 
 from ..core.pose import Pose
+from ..ops.cuda_kernels import ONE_PASS_TILE
 from ..ops.reprojection import CameraIntrinsics
 
 
@@ -205,3 +207,86 @@ def check_reprojection_oracle(pose: Pose, summary, oracle, rtol: float = 1e-9):
     )
     np.testing.assert_allclose(pose.translation, oracle["translation"], atol=1e-9)
     np.testing.assert_allclose(pose.quaternion(), oracle["quat_wxyz"], atol=1e-9)
+
+
+# Threads of a one-pass block and their warps (onepass.cuh: kThreads,
+# kWarps); a thread adds ONE_PASS_TILE // ONE_PASS_THREADS lanes of a tile.
+ONE_PASS_THREADS = 256
+ONE_PASS_WARPS = ONE_PASS_THREADS // 32
+
+
+def onepass_scatter_width(k_out: int) -> int:
+    """The reduce-scatter's width: ``k_out`` padded to a power of two
+    (onepass.cuh: ``scatter_width``)."""
+    w = 1
+    while w < k_out:
+        w *= 2
+    return w
+
+
+def onepass_owner(k: int, width: int) -> int:
+    """The lane that holds output ``k`` after the reduce-scatter
+    (onepass.cuh: ``owner``)."""
+    return k * (32 // width)
+
+
+def onepass_reduce_scatter(v: np.ndarray) -> np.ndarray:
+    """(..., 32 lanes, width) -> (..., 32): what each lane holds after the
+    kernel's reduce-scatter, simulated lane by lane in ``v``'s dtype:
+    halving rounds at offsets 16, 8, ... (a lane keeps its upper half iff
+    lane & offset and adds its partner's copy of it), then a butterfly over
+    the lanes that share a value."""
+    lanes = np.arange(32)
+    off = 16
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        upper = ((lanes & off) != 0)[:, None]
+        lo, hi = v[..., :half], v[..., half:]
+        keep = np.where(upper, hi, lo)
+        send = np.where(upper, lo, hi)
+        v = keep + send[..., lanes ^ off, :]
+        off //= 2
+    s = v[..., 0]
+    while off >= 1:
+        s = s + s[..., lanes ^ off]
+        off //= 2
+    return s
+
+
+def onepass_emulate(terms: np.ndarray) -> np.ndarray:
+    """(K, N) float32 per-factor terms of one problem -> (K,) float32, added
+    one float32 addition at a time in the one-pass kernel's order
+    (onepass.cuh, steps 1-4): a thread's lanes of a tile in index order, the
+    warp reduce-scatter, the warps in order, then each output's tiles in 32
+    lane chains (tiles j, j + 32, ...) joined by a butterfly."""
+    k_out, n = terms.shape
+    width = onepass_scatter_width(k_out)
+    owners = [onepass_owner(k, width) for k in range(k_out)]
+    per_thread = ONE_PASS_TILE // ONE_PASS_THREADS
+    tiles = -(-n // ONE_PASS_TILE)
+    sums = np.zeros((k_out, tiles), np.float32)
+    for t in range(tiles):
+        idx = t * ONE_PASS_TILE + np.arange(ONE_PASS_TILE)
+        chunk = np.zeros((k_out, ONE_PASS_TILE), np.float32)
+        chunk[:, idx < n] = terms[:, idx[idx < n]]
+        lanes = chunk.reshape(k_out, ONE_PASS_THREADS, per_thread)
+        valid = (idx < n).reshape(ONE_PASS_THREADS, per_thread)
+        acc = np.zeros((k_out, ONE_PASS_THREADS), np.float32)
+        for j in range(per_thread):  # lanes >= N are skipped
+            acc = np.where(valid[:, j], acc + lanes[:, :, j], acc)
+        v = np.zeros((ONE_PASS_THREADS, width), np.float32)
+        v[:, :k_out] = acc.T
+        held = onepass_reduce_scatter(v.reshape(ONE_PASS_WARPS, 32, width))
+        tile_sum = np.zeros(k_out, np.float32)
+        for w in range(ONE_PASS_WARPS):
+            tile_sum = tile_sum + held[w, owners]
+        sums[:, t] = tile_sum
+    chain = np.zeros((k_out, 32), np.float32)
+    for t in range(tiles):
+        chain[:, t % 32] = chain[:, t % 32] + sums[:, t]
+    lanes = np.arange(32)
+    off = 16
+    while off >= 1:
+        chain = chain + chain[:, lanes ^ off]
+        off //= 2
+    return chain[:, 0]

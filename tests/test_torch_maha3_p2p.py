@@ -10,8 +10,11 @@ runs them, and against the JAX plain evaluations
 at N = 700 (not a block multiple) for all 7 losses and for a batch of 3
 ragged problems in one buffer, float32, with the tolerance of
 tests/test_pallas.py:75-83 (rtol 2e-5, atol 1e-4: two float32 sums in
-different orders). The port's plain factor code (the registrar's "torch"
-path) is held to the JAX one in float64 at 1e-10.
+different orders). p2p's terms are also summed in the one-pass kernel's
+order (``utils.testing.onepass_emulate``, ``csrc/onepass.cuh``) and held
+to the Pallas kernel at N = 700 and 1,025 (three 512-lane tiles) for all 7
+losses, with the same tolerance. The port's plain factor code (the
+registrar's "torch" path) is held to the JAX one in float64 at 1e-10.
 """
 
 import jax.numpy as jnp
@@ -29,6 +32,7 @@ from nonlinear_optimizer_for_slam_tpu_torch.core import lie
 from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
 from nonlinear_optimizer_for_slam_tpu_torch.ops import mahalanobis as tmaha
 from nonlinear_optimizer_for_slam_tpu_torch.ops import point_to_plane as tp2p
+from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
 
 LOSS_ARGS = [
     ("TrivialLoss", ()),
@@ -143,6 +147,26 @@ def test_p2p_plain_matches_pallas_and_jnp(problems, loss_name, loss_args):
     )
     _close(got, want_pallas)
     _close(got, want_jnp)
+
+
+@pytest.mark.parametrize("n", [700, 1025])
+@pytest.mark.parametrize("loss_name,loss_args", LOSS_ARGS, ids=[n for n, _ in LOSS_ARGS])
+def test_p2p_onepass_order_matches_pallas(loss_name, loss_args, n):
+    """The port's per-factor terms (``p2p_terms``, the kernel's arithmetic)
+    added in the one-pass kernel's order, one float32 addition at a time,
+    against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(n)
+    rows = _p2p_rows(rng, n)
+    pose = port.Pose.from_axis_angle(rng.uniform(0.1, 0.6), rng.normal(size=3),
+                                     0.3 * rng.normal(size=3))
+    R, t = pose.rotation.astype(np.float32), pose.translation.astype(np.float32)
+    tloss, jloss = _losses(loss_name, loss_args)
+    code, loss_ab = ck.maha6_loss_ab(tloss, "cpu")
+    params = ck.maha6_params(torch.as_tensor(R)[None], torch.as_tensor(t)[None], loss_ab)
+    terms = ck.p2p_terms(params, torch.as_tensor(rows.T.copy())[None], code)[0].numpy()
+    got = ck.unpack_out(torch.as_tensor(testing.onepass_emulate(terms)), 6)
+    want = pk.p2p_eval_quadratic(jnp.asarray(R), jnp.asarray(t), _jax_p2p(rows), jloss)
+    _close(got, want)
 
 
 @pytest.mark.parametrize("kernel", ["maha3", "p2p"])

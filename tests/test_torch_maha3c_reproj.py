@@ -13,7 +13,11 @@ losses and for a batch of 3 ragged problems in one buffer, float32:
   float64 ``eval_quadratic_3dof`` oracle with rtol 1e-4 (:319-322);
 - reproj: against ``pk.reproj_eval_quadratic`` with the tolerance of
   tests/test_pallas.py:105-107 (rtol 2e-4, atol 1e-3), with points on both
-  sides of the depth gate.
+  sides of the depth gate;
+- maha3c's terms summed in the one-pass kernel's order
+  (``utils.testing.onepass_emulate``, ``csrc/onepass.cuh``) against the
+  Pallas kernel, at N = 700 and 1,025 (three 512-lane tiles) for all 7
+  losses, with maha3c's tolerance above.
 
 The packings are held to the JAX ones row for row, and the port's
 ``ops/reprojection`` (the "torch" backend) to the JAX module in float64 at
@@ -34,6 +38,7 @@ from nonlinear_optimizer_for_slam_tpu_torch.core import lie
 from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
 from nonlinear_optimizer_for_slam_tpu_torch.ops import mahalanobis as tmaha
 from nonlinear_optimizer_for_slam_tpu_torch.ops import reprojection as treproj
+from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
 
 LOSS_ARGS = [
     ("TrivialLoss", ()),
@@ -142,6 +147,29 @@ def test_maha3c_plain_matches_pallas_and_f64(problems, loss_name, loss_args):
     )
     np.testing.assert_allclose(got[0].numpy(), np.asarray(H64), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(float(got[2]), float(c64), rtol=1e-4)
+
+
+@pytest.mark.parametrize("n", [700, 1025])
+@pytest.mark.parametrize("loss_name,loss_args", LOSS_ARGS, ids=LOSS_IDS)
+def test_maha3c_onepass_order_matches_pallas(loss_name, loss_args, n):
+    """The port's per-factor terms (``maha3c_terms``, the kernel's
+    arithmetic) added in the one-pass kernel's order, one float32 addition
+    at a time, against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(n)
+    fields = _maha_fields(rng, n)
+    theta, t2 = F32(rng.uniform(-0.5, 0.5)), rng.normal(size=2).astype(F32)
+    tloss, jloss = _losses(loss_name, loss_args)
+    R2 = _R2(theta)
+    packed = ck.pack_maha3_compact(tmaha.MahalanobisData(*(torch.as_tensor(a) for a in fields)))
+    code, loss_ab = ck.maha6_loss_ab(tloss, "cpu")
+    params = ck.maha3_params(torch.as_tensor(R2)[None], torch.as_tensor(t2)[None], loss_ab)
+    terms = ck.maha3c_terms(params, packed[None], code)[0].numpy()
+    got = ck.unpack_out(torch.as_tensor(testing.onepass_emulate(terms)), 3)
+    jdata = jmaha.MahalanobisData(*(jnp.asarray(a) for a in fields))
+    want = pk.maha3_eval_quadratic_compact(
+        jnp.asarray(R2), jnp.asarray(t2), pk.pack_maha3_compact(jdata), jloss
+    )
+    _close(got, want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("loss_name,loss_args", LOSS_ARGS, ids=LOSS_IDS)

@@ -1,5 +1,5 @@
-"""The one-pass reduction of maha6 and maha3 (``csrc/onepass.cuh``),
-checked on the CPU.
+"""The one-pass reduction of maha6, maha3, maha3c and p2p
+(``csrc/onepass.cuh``), checked on the CPU.
 
 The kernel cannot run here, so three things that fix its results are
 checked without it:
@@ -8,16 +8,19 @@ checked without it:
   (tiles of N lanes, the workspace size, which lane holds which output of
   the reduce-scatter) into a harness, held against the Python copy that
   sizes the workspace and against a simulation of the reduce-scatter;
-- its order of summation: a numpy emulation adds the plain versions'
-  per-factor terms (``maha6_terms``, ``maha3_terms``) in the kernel's order,
-  one float32 add at a time (the 2 lanes of a thread, the reduce-scatter,
-  the 8 warps, the tiles' lane chains and butterfly). Trailing zero lanes
-  must change no bit, a problem inside a ragged batch must give the bits it
-  gives alone, and the sum must lie within N u sum|terms| of the float64
-  sum (u = 2^-24, the bound of any order of N float32 additions);
+- its order of summation: a numpy emulation
+  (``utils.testing.onepass_emulate``) adds the plain versions' per-factor
+  terms (``ck._TERMS``) in the kernel's order, one float32 add at a time
+  (the 2 lanes of a thread, the reduce-scatter, the 8 warps, the tiles'
+  lane chains and butterfly). Trailing zero lanes must change no bit, a
+  problem inside a ragged batch must give the bits it gives alone, and the
+  sum must lie within N u sum|terms| of the float64 sum (u = 2^-24, the
+  bound of any order of N float32 additions). maha3c has no mask row: its
+  masked and zero lanes must add nothing either;
 - the buffers bound for the kernel: ``lane_aligned`` gives rows that start
-  every ld floats, ld % 4 == 0, zero past N, and the wrapper's layout check
-  refuses any other.
+  every ld floats, ld % 4 == 0, zero past N, for the 16-row and the 10-row
+  layouts, the packers apply it to CUDA buffers only, and the wrapper's
+  layout check refuses any other layout.
 
 Besides, the host side: every C function the kernel files export has its
 ctypes signature, and the workspace is one per stream for eager calls and
@@ -37,12 +40,17 @@ import torch
 import nonlinear_optimizer_for_slam_tpu_torch as port
 from nonlinear_optimizer_for_slam_tpu_torch.core import lie
 from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+from nonlinear_optimizer_for_slam_tpu_torch.ops.mahalanobis import MahalanobisData
+from nonlinear_optimizer_for_slam_tpu_torch.ops.point_to_plane import PointToPlaneData
+from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
 
 CSRC = Path(port.__file__).resolve().parent / "csrc"
-THREADS, WARPS = 256, 8
 TILE = ck.ONE_PASS_TILE
-LANES = TILE // THREADS
 U = 2.0**-24
+_emulate = testing.onepass_emulate
+_reduce_scatter = testing.onepass_reduce_scatter
+_width = testing.onepass_scatter_width
+_owner = testing.onepass_owner
 SIZES_N = (0, 1, 3, 4, 1023, 1024, 1025, 2047, 18712, 18713, 1_000_003)
 
 HARNESS = r"""
@@ -55,6 +63,7 @@ using namespace nls::onepass;
 
 int main() {
   std::printf("tile %d\n", kTile);
+  std::printf("threads %d %d\n", kThreads, kWarps);
   const long long ns[] = {%NS%};
   for (long long n : ns) {
     std::printf("n %lld %lld %lld %lld\n", n, static_cast<long long>(num_tiles(n)),
@@ -111,6 +120,8 @@ def geometry(tmp_path_factory):
         vals = [int(v) for v in vals]
         if key == "tile":
             out["tile"] = vals[0]
+        elif key == "threads":
+            out["threads"] = tuple(vals)
         elif key == "n":
             out["n"][vals[0]] = tuple(vals[1:])
         elif key == "width":
@@ -118,75 +129,6 @@ def geometry(tmp_path_factory):
         else:
             out[key][tuple(vals[:-1])] = vals[-1]
     return out
-
-
-def _width(k_out: int) -> int:
-    w = 1
-    while w < k_out:
-        w *= 2
-    return w
-
-
-def _owner(k: int, width: int) -> int:
-    return k * (32 // width)
-
-
-def _reduce_scatter(v: np.ndarray) -> np.ndarray:
-    """(..., 32 lanes, width) float32 -> (..., 32): what each lane holds
-    after the kernel's reduce-scatter, simulated lane by lane: halving rounds
-    at offsets 16, 8, ... (a lane keeps its upper half iff lane & offset and
-    adds its partner's copy of it), then a butterfly over the lanes that
-    share a value."""
-    lanes = np.arange(32)
-    off = 16
-    while v.shape[-1] > 1:
-        half = v.shape[-1] // 2
-        upper = ((lanes & off) != 0)[:, None]
-        lo, hi = v[..., :half], v[..., half:]
-        keep = np.where(upper, hi, lo)
-        send = np.where(upper, lo, hi)
-        v = keep + send[..., lanes ^ off, :]
-        off //= 2
-    s = v[..., 0]
-    while off >= 1:
-        s = s + s[..., lanes ^ off]
-        off //= 2
-    return s
-
-
-def _emulate(terms: np.ndarray) -> np.ndarray:
-    """(K, N) float32 per-factor terms of one problem -> (K,) float32, added
-    in the kernel's order (csrc/onepass.cuh, steps 1-4)."""
-    k_out, n = terms.shape
-    width = _width(k_out)
-    owners = [_owner(k, width) for k in range(k_out)]
-    tiles = -(-n // TILE)
-    sums = np.zeros((k_out, tiles), np.float32)
-    for t in range(tiles):
-        idx = t * TILE + np.arange(TILE)
-        chunk = np.zeros((k_out, TILE), np.float32)
-        chunk[:, idx < n] = terms[:, idx[idx < n]]
-        lanes = chunk.reshape(k_out, THREADS, LANES)
-        valid = (idx < n).reshape(THREADS, LANES)
-        acc = np.zeros((k_out, THREADS), np.float32)
-        for j in range(LANES):  # a thread's lanes in index order; lanes >= N skipped
-            acc = np.where(valid[:, j], acc + lanes[:, :, j], acc)
-        v = np.zeros((THREADS, width), np.float32)
-        v[:, :k_out] = acc.T
-        held = _reduce_scatter(v.reshape(WARPS, 32, width))  # (warps, 32)
-        tile_sum = np.zeros(k_out, np.float32)
-        for w in range(WARPS):
-            tile_sum = tile_sum + held[w, owners]
-        sums[:, t] = tile_sum
-    chain = np.zeros((k_out, 32), np.float32)
-    for t in range(tiles):  # lane j: tiles j, j + 32, ... in order
-        chain[:, t % 32] = chain[:, t % 32] + sums[:, t]
-    lanes = np.arange(32)
-    off = 16
-    while off >= 1:
-        chain = chain + chain[:, lanes ^ off]
-        off //= 2
-    return chain[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +139,7 @@ def _emulate(terms: np.ndarray) -> np.ndarray:
 @pytest.mark.parametrize("n", SIZES_N)
 def test_geometry_matches_python_copy(geometry, n):
     assert geometry["tile"] == TILE
+    assert geometry["threads"] == (testing.ONE_PASS_THREADS, testing.ONE_PASS_WARPS)
     tiles, ws6, ws3 = geometry["n"][n]
     assert tiles == ck.onepass_num_tiles(n) == -(-n // TILE)
     assert ws6 == ck.onepass_workspace_floats(3, n, 28) == 3 * tiles * 28
@@ -232,17 +175,35 @@ def test_reduce_scatter_lands_each_output_on_its_owner(geometry, k_out):
 # ---------------------------------------------------------------------------
 
 LOSSES = [port.TrivialLoss(), port.ExponentialLoss(1.0, 1.0), port.HuberLoss(1.0)]
+ALL_LOSSES = LOSSES + [
+    port.CauchyLoss(1.5), port.TukeyLoss(2.0), port.GemanMcClureLoss(1.2), port.DCSLoss(2.5),
+]
 
 
-def _problem(rng, n):
-    packed = rng.normal(size=(16, n)).astype(np.float32)
-    packed[15] = (rng.uniform(size=n) > 0.1).astype(np.float32)
+def _maha_data(rng, n):
+    """Random Mahalanobis data, about 10 % of it masked."""
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    return MahalanobisData(
+        f32(rng.normal(size=(n, 3))), f32(rng.normal(size=(n, 3))),
+        f32(rng.normal(size=(n, 3, 3))), f32(rng.uniform(size=n) > 0.1),
+    )
+
+
+def _problem(rng, n, kernel="maha6"):
+    """(rows, n) float32 of ``kernel``'s packing, about 10 % masked: maha3c's
+    rows packed from Mahalanobis data (its mask folded into the Gram rows),
+    the others random rows with the mask in the last row."""
+    if kernel == "maha3c":
+        return ck.pack_maha3_compact(_maha_data(rng, n))
+    rows = ck._SHAPES[kernel][0]
+    packed = rng.normal(size=(rows, n)).astype(np.float32)
+    packed[rows - 1] = (rng.uniform(size=n) > 0.1).astype(np.float32)
     return torch.as_tensor(packed)
 
 
 def _params(kernel, rng, batch, loss):
     code, loss_ab = ck.maha6_loss_ab(loss, "cpu")
-    if kernel == "maha3":
+    if kernel in ("maha3", "maha3c"):
         theta = torch.as_tensor(rng.uniform(-np.pi, np.pi, size=batch), dtype=torch.float32)
         t2 = torch.as_tensor(rng.normal(size=(batch, 2)), dtype=torch.float32)
         return code, ck.maha3_params(lie.rot2(theta), t2, loss_ab)
@@ -261,7 +222,7 @@ def _terms(kernel, params, packed, code):
 @pytest.mark.parametrize("kernel", ck.ONE_PASS)
 def test_trailing_zero_lanes_change_no_bit(rng, kernel, loss):
     n = 2500
-    packed = _problem(rng, n)
+    packed = _problem(rng, n, kernel)
     code, params = _params(kernel, rng, 1, loss)
     want = _emulate(_terms(kernel, params, packed[None], code)[0])
     for zeros in (1, 3, TILE - n % TILE, TILE + 5, 3 * TILE):
@@ -276,9 +237,9 @@ def test_ragged_batch_lane_sums_as_alone(rng, kernel, loss):
     """Problems of 5,000, 1,025 and 3 lanes in one zero-padded batch: each
     problem's sum has the bits of the same terms summed alone at its N."""
     sizes = (5000, 1025, 3)
-    buf = torch.zeros((len(sizes), 16, max(sizes)))
+    buf = torch.zeros((len(sizes), ck._SHAPES[kernel][0], max(sizes)))
     for b, n in enumerate(sizes):
-        buf[b, :, :n] = _problem(rng, n)
+        buf[b, :, :n] = _problem(rng, n, kernel)
     code, params = _params(kernel, rng, len(sizes), loss)
     terms = _terms(kernel, params, buf, code)
     for b, n in enumerate(sizes):
@@ -287,10 +248,37 @@ def test_ragged_batch_lane_sums_as_alone(rng, kernel, loss):
         np.testing.assert_array_equal(in_batch.view(np.uint32), alone.view(np.uint32))
 
 
+@pytest.mark.parametrize("loss", ALL_LOSSES, ids=lambda l: type(l).__name__)
+def test_maha3c_masked_and_zero_lanes_add_nothing(rng, loss):
+    """maha3c has no mask row. A masked factor of the real packing has M, v
+    and szz of +0 or -0 (a negative M01 times a mask of 0 is -0), and a zero
+    lane below N (the planar minimizer pads its correspondences to a
+    multiple of 1,024) has every row 0. Both give |r|^2 = +0, so the cost
+    rho(0) is +0 for all 7 losses, and every other term is +0 or -0. As the
+    kernel's sums start at +0, such terms leave every bit: the emulated sum
+    is the same with them replaced by +0 or by -0."""
+    n = 1500
+    data = _maha_data(rng, n)
+    packed = torch.nn.functional.pad(ck.pack_maha3_compact(data), (0, 2 * TILE + 7))
+    code, params = _params("maha3c", rng, 1, loss)
+    terms = _terms("maha3c", params, packed[None], code)[0]
+    empty = np.concatenate([
+        np.flatnonzero(data.mask.numpy() == 0), np.arange(n, packed.shape[-1])
+    ])
+    assert (terms[:, empty] == 0).all()
+    assert not np.signbit(terms[9, empty]).any()  # rho(0) = +0
+    assert np.signbit(terms[:, empty]).any()  # the -0 products occur
+    want = _emulate(terms)
+    for zero in (0.0, -0.0):
+        swapped = terms.copy()
+        swapped[:, empty] = np.float32(zero)
+        np.testing.assert_array_equal(_emulate(swapped).view(np.uint32), want.view(np.uint32))
+
+
 @pytest.mark.parametrize("n", [1, 1023, 4097])
 @pytest.mark.parametrize("kernel", ck.ONE_PASS)
 def test_sum_within_float32_bound_of_f64(rng, kernel, n):
-    packed = _problem(rng, n)
+    packed = _problem(rng, n, kernel)
     code, params = _params(kernel, rng, 1, port.ExponentialLoss(1.0, 1.0))
     terms = _terms(kernel, params, packed[None], code)[0]
     got = _emulate(terms).astype(np.float64)
@@ -315,51 +303,56 @@ def _full_rows(view: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1023, 1025, 18713])
 def test_lane_aligned_rows(rng, n):
-    packed = torch.as_tensor(rng.normal(size=(3, 16, n)), dtype=torch.float32)
-    packed[:, 15] = 1.0  # the mask row: its padding must be zero too
-    out = ck.lane_aligned(packed)
-    assert out.shape == packed.shape and torch.equal(out, packed)
-    one = ck.lane_aligned(packed[0])  # a single (16, N) buffer, as the packer makes it
-    assert one.shape == (16, n) and torch.equal(one, packed[0])
-    if n % 4 == 0:  # already aligned: no copy
-        assert out.data_ptr() == packed.data_ptr()
-    if n == 0:
-        return
-    ld = out.stride(1)
-    assert ld == -(-n // 4) * 4 and ld % ck.LANE_ALIGN == 0
-    assert out.stride() == (16 * ld, ld, 1) and out.data_ptr() % 16 == 0
-    assert ck._one_pass_ld("maha6", out) == ld
-    assert not _full_rows(out)[..., n:].any()
-    assert one.stride() == (ld, 1)
-    assert ck._one_pass_ld("maha3", one[None]) == ld
+    """The 16-row layout (maha6, maha3) and the 10-row one (maha3c, p2p)."""
+    for kernel, rows in (("maha6", 16), ("p2p", 10)):
+        packed = torch.as_tensor(rng.normal(size=(3, rows, n)), dtype=torch.float32)
+        packed[:, rows - 1] = 1.0  # the mask row: its padding must be zero too
+        out = ck.lane_aligned(packed)
+        assert out.shape == packed.shape and torch.equal(out, packed)
+        one = ck.lane_aligned(packed[0])  # a single (rows, N) buffer, as a packer makes it
+        assert one.shape == (rows, n) and torch.equal(one, packed[0])
+        if n % 4 == 0:  # already aligned: no copy
+            assert out.data_ptr() == packed.data_ptr()
+        if n == 0:
+            continue
+        ld = out.stride(1)
+        assert ld == -(-n // 4) * 4 and ld % ck.LANE_ALIGN == 0
+        assert out.stride() == (rows * ld, ld, 1) and out.data_ptr() % 16 == 0
+        assert ck._one_pass_ld(kernel, out) == ld
+        assert not _full_rows(out)[..., n:].any()
+        assert one.stride() == (ld, 1)
+        assert ck._one_pass_ld(kernel, one[None]) == ld
 
 
 def test_packers_align_only_kernel_buffers(rng):
-    """pack_maha6 on the CPU keeps its contiguous (16, N) buffer, bit for
-    bit the lane_aligned view's values."""
+    """pack_maha6, pack_maha3_compact and pack_p2p on the CPU keep their
+    contiguous (rows, N) buffers, bit for bit the lane_aligned views'
+    values."""
     n = 1023
-    data = port.ops.mahalanobis.MahalanobisData(
-        *(torch.as_tensor(a, dtype=torch.float32) for a in (
-            rng.normal(size=(n, 3)), rng.normal(size=(n, 3)),
-            rng.normal(size=(n, 3, 3)), np.ones(n),
-        ))
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    maha = _maha_data(rng, n)
+    p2p = PointToPlaneData(
+        f32(rng.normal(size=(n, 3))), f32(rng.normal(size=(n, 3))),
+        f32(rng.normal(size=(n, 3))), f32(rng.uniform(size=n) > 0.1),
     )
-    packed = ck.pack_maha6(data)
-    assert packed.shape == (16, n) and packed.is_contiguous()
-    aligned = ck.lane_aligned(packed)
-    assert torch.equal(aligned, packed) and aligned.stride(0) == 1024
+    for packed, rows in (
+        (ck.pack_maha6(maha), 16), (ck.pack_maha3_compact(maha), 10), (ck.pack_p2p(p2p), 10),
+    ):
+        assert packed.shape == (rows, n) and packed.is_contiguous()
+        aligned = ck.lane_aligned(packed)
+        assert torch.equal(aligned, packed) and aligned.stride(0) == 1024
 
 
-def _misaligned(kind):
-    buf = torch.zeros((2, 16, 1028))
+def _misaligned(kind, rows=16):
+    buf = torch.zeros((2, rows, 1028))
     return {
-        "ld_not_multiple_of_4": torch.zeros((2, 16, 1023)),
+        "ld_not_multiple_of_4": torch.zeros((2, rows, 1023)),
         "unaligned_start": buf[..., 1:1024],
-        "transposed_rows": torch.zeros((2, 1024, 16)).transpose(1, 2),
-        "problems_not_rows_ld_apart": torch.zeros((2, 17, 1024))[:, :16],
+        "transposed_rows": torch.zeros((2, 1024, rows)).transpose(1, 2),
+        "problems_not_rows_ld_apart": torch.zeros((2, rows + 1, 1024))[:, :rows],
         # the last row's last 16 bytes would end 2 floats past the storage
         "storage_too_short": torch.as_strided(
-            torch.zeros(16 * 1024 - 2), (1, 16, 1021), (16 * 1024, 1024, 1)
+            torch.zeros(rows * 1024 - 2), (1, rows, 1021), (rows * 1024, 1024, 1)
         ),
     }[kind]
 
@@ -369,10 +362,13 @@ def _misaligned(kind):
     "problems_not_rows_ld_apart", "storage_too_short",
 ])
 def test_kernel_layout_check_refuses(kind):
-    with pytest.raises(ValueError, match="lane_aligned"):
-        ck._one_pass_ld("maha6", _misaligned(kind))
-    # the same buffer laid out by lane_aligned passes
-    assert ck._one_pass_ld("maha6", ck.lane_aligned(_misaligned(kind))) % 4 == 0
+    """For every one-pass kernel, at its rows (16 or 10)."""
+    for kernel in ck.ONE_PASS:
+        rows = ck._SHAPES[kernel][0]
+        with pytest.raises(ValueError, match="lane_aligned"):
+            ck._one_pass_ld(kernel, _misaligned(kind, rows))
+        # the same buffer laid out by lane_aligned passes
+        assert ck._one_pass_ld(kernel, ck.lane_aligned(_misaligned(kind, rows))) % 4 == 0
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +427,8 @@ def test_workspace_per_stream_or_per_capture(monkeypatch, capturing):
 
 
 def test_two_pass_timing_entry_refuses_cpu_tensors():
-    packed = torch.zeros((1, 16, 8))
-    code, params = _params("maha6", np.random.default_rng(0), 1, port.TrivialLoss())
-    with pytest.raises(ValueError, match="CUDA"):
-        ck._partials_two_pass("maha6", params, packed, code)
+    for kernel in ck.ONE_PASS:
+        packed = torch.zeros((1, ck._SHAPES[kernel][0], 8))
+        code, params = _params(kernel, np.random.default_rng(0), 1, port.TrivialLoss())
+        with pytest.raises(ValueError, match="CUDA"):
+            ck._partials_two_pass(kernel, params, packed, code)
