@@ -9,13 +9,15 @@ on the full room fixture the host-driven 6-DoF NDT registration
 (``register_ndt``), the device-resident ``NdtRegistrar`` (6-DoF, planar,
 point-to-plane and a lockstep batch of 16 scans) and the planar 3-DoF
 minimizer under ``register_ndt``; on the reference's PnP fixture the
-reprojection minimizer. maha6, maha3, maha3c and p2p, the one-launch
-kernels of ``csrc/onepass.cuh``, are also held to their plain versions at
-edge sizes of N, over 1,000 launches that alternate between two shapes, on
-a second stream, replayed from CUDA graphs (two of them at once on two
-streams, beside eager calls), and timed against the two-pass design they
-replace and against an empty kernel's launch. It checks the f64 path
-against the reference oracle traces, and times the kernels and the paths.
+reprojection minimizer. All five are one-launch kernels on
+``csrc/onepass.cuh``; each is also held to its plain version at edge sizes
+of N, over 1,000 launches that alternate between two shapes, on a second
+stream, replayed from CUDA graphs (two of them at once on two streams,
+beside eager calls), with the cluster finish (up to 16 tiles) against the
+ticket's on the same problem zero-padded past 16 tiles, and timed against
+an empty kernel's launch. It checks the f64
+path against the reference oracle traces, and times the kernels and the
+paths.
 Every phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code.
 The line before the last is the ``kernels`` summary, the last line
@@ -79,7 +81,7 @@ TPU_KERNEL = {
 }
 
 # Kernel vs plain version: the two sum in different orders (registers, warp
-# shuffles and a second pass against PyTorch's reductions) and nvcc
+# shuffles and tile sums against PyTorch's reductions) and nvcc
 # contracts to FMAs, so each output may differ by a few float32 roundings
 # of the terms it sums: |kernel - plain| <= RTOL * scale + ATOL, with scale
 # the sum of |terms| (see _error_scale for the off-diagonal H entries).
@@ -225,17 +227,12 @@ def main() -> int:
         out[rows - 1] = mask  # the mask row
         return torch.as_tensor(out, device=dev)
 
-    def bound(kernel: str, packed):
-        """``packed`` as ``kernel`` reads it: the one-pass kernels take rows
-        of 16-byte loads (ck.lane_aligned), the others contiguous rows."""
-        return ck.lane_aligned(packed) if kernel in ck.ONE_PASS else packed
-
     def batch3(kernel: str) -> "torch.Tensor":
         sizes = [1_000_003, 18_712, 5_000]
         out = torch.zeros((3, KERNEL_SHAPE[kernel][0], max(sizes)), device=dev)
         for b, n in enumerate(sizes):
             out[b, :, :n] = random_packed(kernel, n)
-        return bound(kernel, out)
+        return ck.lane_aligned(out)
 
     def params_of(kernel, poses, loss):
         """(loss code, (B, params) float32) at the given poses; maha3 and
@@ -277,7 +274,7 @@ def main() -> int:
     worst = {}
     for kernel, kcases in cases.items():
         kcases["ragged_n1000003"] = (
-            bound(kernel, random_packed(kernel, 1_000_003)[None]), [rand_pose]
+            ck.lane_aligned(random_packed(kernel, 1_000_003)[None]), [rand_pose]
         )
         kcases["batch3"] = (batch3(kernel), [rand_pose, identity, rand_pose.inverse()])
         report = {}
@@ -310,7 +307,7 @@ def main() -> int:
         # trailing zero lanes (a ragged batch's padding) change no bit
         packed, poses = kcases[main_case[kernel]]
         code, params = params_of(kernel, poses, losses[1])
-        padded = bound(kernel, torch.nn.functional.pad(packed, (0, 4099)))
+        padded = ck.lane_aligned(torch.nn.functional.pad(packed, (0, 4099)))
         if not torch.equal(partials[kernel](params, packed, code),
                            partials[kernel](params, padded, code)):
             raise AssertionError(f"{kernel}: zero padding changes the result")
@@ -330,10 +327,20 @@ def main() -> int:
     def same_bits(a, b) -> bool:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
+    # a problem of ticket_n lanes (17 tiles) takes the ticket's finish; zero
+    # lanes change no bit, so a problem zero-padded to ticket_n lanes holds
+    # the cluster finish against the ticket's
+    ticket_n = ck.ONE_PASS_CLUSTER_TILES * ck.ONE_PASS_TILE + 1
+
+    def padded_to_ticket(packed):
+        return ck.lane_aligned(
+            torch.nn.functional.pad(packed, (0, ticket_n - packed.shape[-1]))
+        )
+
     for kernel in ck.ONE_PASS:
         edge = {}
         for n in (0, 1, 3, 1023, 1025, 18713):
-            packed = bound(kernel, random_packed(kernel, n)[None])
+            packed = ck.lane_aligned(random_packed(kernel, n)[None])
             for loss_ in losses:
                 code, params = params_of(kernel, [rand_pose], loss_)
                 got = partials[kernel](params, packed, code)
@@ -343,6 +350,37 @@ def main() -> int:
                 edge[f"n{n}/{type(loss_).__name__}"] = check_close(
                     label, got, terms[kernel](params, packed, code)
                 )
+        # the two finishes of onepass.cuh give the same bits: the cluster's
+        # (up to 16 tiles) and the ticket's, on the problem zero-padded to
+        # 17 tiles
+        for n in (1, 1025, 4096, 8192):
+            packed = ck.lane_aligned(random_packed(kernel, n)[None])
+            code, params = params_of(kernel, [rand_pose], losses[1])
+            by_cluster = partials[kernel](params, packed, code)
+            by_ticket = partials[kernel](params, padded_to_ticket(packed), code)
+            if ck.onepass_cluster_blocks(n) == 0 or ck.onepass_cluster_blocks(ticket_n) != 0:
+                raise AssertionError(f"{kernel} n{n}: not one problem for each finish")
+            if not same_bits(by_cluster, by_ticket):
+                raise AssertionError(f"{kernel} n{n}: the two finishes differ")
+        # a ragged batch of 3 through the cluster finish (clusters of 8
+        # blocks, one a problem): each problem within tolerance of the plain
+        # version, with the bits it has alone and, zero-padded, through the
+        # ticket's finish
+        sizes = (4096, 1025, 3)
+        small = torch.zeros((3, KERNEL_SHAPE[kernel][0], max(sizes)), device=dev)
+        for b, n in enumerate(sizes):
+            small[b, :, :n] = random_packed(kernel, n)
+        small = ck.lane_aligned(small)
+        code, params_b3 = params_of(kernel, [rand_pose, identity, rand_pose.inverse()], losses[1])
+        got = partials[kernel](params_b3, small, code)
+        check_close(f"{kernel} small batch", got, terms[kernel](params_b3, small, code))
+        alone = [
+            partials[kernel](params_b3[b : b + 1], ck.lane_aligned(small[b : b + 1, :, :n]), code)
+            for b, n in enumerate(sizes)
+        ]
+        by_ticket = partials[kernel](params_b3, padded_to_ticket(small), code)
+        if not (same_bits(got, torch.cat(alone)) and same_bits(got, by_ticket)):
+            raise AssertionError(f"{kernel}: a small batch through the cluster finish differs")
         # 1,000 launches alternating between two shapes: each equal to the
         # first of its shape, bit for bit (a counter left non-zero by one
         # launch would leave the next without a finishing block)
@@ -416,6 +454,8 @@ def main() -> int:
         del graph, graph3
         emit("onepass_checks", kernel=kernel, edge_n_max_abs_err=edge,
              alternating_launches=1000, alternating_bitwise_equal=True,
+             finishes_bitwise_equal_at_n=[1, 1025, 4096, 8192], ticket_padded_to_n=ticket_n,
+             cluster_batch_of_3_bitwise_as_alone=True,
              second_stream_bitwise_equal=True, graph_replays=10, graph_bitwise_equal=True,
              concurrent_graph_replays=200, concurrent_eager_calls=100,
              concurrent_bitwise_equal=True)
@@ -773,6 +813,13 @@ def main() -> int:
     prof = _profile(run_planar)
     emit("planar_profile", device_kernels_per_lm_evaluation=prof["device_kernels"] / planar_evals,
          **prof)
+    prof = _profile(run_reproj)
+    reproj_kernels = {k: c for k, c in prof["port_kernels"].items() if "Reproj" in k}
+    if sum(prof["port_kernels"].values()) != reproj_evals or len(reproj_kernels) != 1:
+        raise AssertionError(f"pnp_profile: port kernels {prof['port_kernels']} in "
+                             f"{reproj_evals} LM evaluations, want one reproj kernel each")
+    emit("pnp_profile", device_kernels_per_lm_evaluation=prof["device_kernels"] / reproj_evals,
+         port_kernels_per_lm_evaluation=sum(reproj_kernels.values()) / reproj_evals, **prof)
 
     # ---- 7. the registrar's timings (descriptive) ---------------------------
     timing = {}
@@ -828,56 +875,68 @@ def main() -> int:
         emit("kernel_timing", **row)
         return row
 
-    # where bytes, not launches, bound it (the one-pass kernels' large-N
-    # times are in onepass_ab)
-    time_kernel("reproj", *cases["reproj"]["ragged_n1000003"])
-
-    # the one-pass kernels against the two-pass design they replace, in
-    # turns, and an empty kernel through the same ctypes path: the launch
-    # floor
+    # an empty kernel through the same ctypes path: the launch floor
     floor_ms, floor_host_ms = _time_ms(lambda: ck._empty_launch(dev), 200)
+    # the cluster finish against the ticket's, in turns: reproj at PnP's N,
+    # 8 and 16 tiles through the cluster, against the same problem
+    # zero-padded to ticket_n lanes (17 tiles, one block each, so the same
+    # latency chain, plus the blocks of the zero tiles) through the ticket
+    finish_ab = {}
+    for packed, poses in [
+        cases["reproj"]["fixture_n630"],
+        *[(ck.lane_aligned(random_packed("reproj", n)[None]), [rand_pose]) for n in (4096, 8192)],
+    ]:
+        code, params = params_of("reproj", poses, loss)
+        padded = padded_to_ticket(packed)
+        calls = {"cluster": lambda: partials["reproj"](params, packed, code),
+                 "ticket": lambda: partials["reproj"](params, padded, code)}
+        times = {"ticket": [], "cluster": []}
+        for finish in ("ticket", "cluster", "cluster", "ticket"):
+            times[finish].append(_time_ms(calls[finish], 200))
+        if not same_bits(calls["cluster"](), calls["ticket"]()):
+            raise AssertionError(f"reproj n{packed.shape[-1]}: the two finishes differ")
+        finish_ab[f"reproj/n{packed.shape[-1]}"] = {
+            "cluster_blocks": ck.onepass_cluster_blocks(packed.shape[-1]),
+            **{f"{k}_ms_back_to_back": [t[0] for t in v] for k, v in times.items()},
+            **{f"{k}_ms_host_bound": [t[1] for t in v] for k, v in times.items()},
+        }
+    emit("finish_ab", order="ticket cluster cluster ticket", ticket_padded_to_n=ticket_n,
+         bitwise_equal=True, designs=finish_ab, device=name, nvidia_smi=smi)
     ab, ladder = {}, {}
     for kernel in ck.ONE_PASS:
         n_out = KERNEL_SHAPE[kernel][1]
-        # where a small call's time goes: no factor (the launch, the ticket
-        # and the finishing block), then one tile of 512 lanes on one block
+        # where a small call's time goes: no factor (the launch and the
+        # cluster finish of one block), then one tile of 512 lanes
         for n in (0, ck.ONE_PASS_TILE):
             code, params = params_of(kernel, [rand_pose], loss)
-            packed = bound(kernel, random_packed(kernel, n)[None])
+            packed = ck.lane_aligned(random_packed(kernel, n)[None])
             ladder[f"{kernel}/n{n}"] = _time_ms(
                 lambda: partials[kernel](params, packed, code), 200
             )[0]
+        # the main path's N and a large N, twice each: the spread of a time
         for packed, poses in (
             cases[kernel][main_case[kernel]],
-            (random_packed(kernel, 1_000_003)[None], [rand_pose]),
+            (ck.lane_aligned(random_packed(kernel, 1_000_003)[None]), [rand_pose]),
         ):
-            label = f"n{packed.shape[-1]}"
             code, params = params_of(kernel, poses, loss)
-            contiguous, aligned = packed.contiguous(), ck.lane_aligned(packed)
-            designs = {
-                "two_pass": lambda: ck._partials_two_pass(kernel, params, contiguous, code),
-                "one_pass": lambda: partials[kernel](params, aligned, code),
-            }
-            check_close(f"{kernel} {label} two-pass", designs["two_pass"](),
-                        terms[kernel](params, contiguous, code))
-            times = {k: [] for k in designs}
-            for k in ("two_pass", "one_pass", "one_pass", "two_pass"):
-                times[k].append(_time_ms(designs[k], 200))
+            times = [_time_ms(lambda: partials[kernel](params, packed, code), 200)
+                     for _ in range(2)]
+            contiguous = packed.contiguous()
             nbytes = contiguous.numel() * 4 + params.numel() * 4 + n_out * 4
             # a yardstick of the rate the card streams these bytes at: a
             # device copy of the buffer, which reads and writes each byte
             dst = torch.empty_like(contiguous)
             copy_ms = _time_ms(lambda: dst.copy_(contiguous), 200)[0]
-            ab[f"{kernel}/{label}"] = {
+            ab[f"{kernel}/n{packed.shape[-1]}"] = {
                 "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
                 "copy_ms": copy_ms,
                 "copy_bytes_per_s": 2 * contiguous.numel() * 4 / (copy_ms * 1e-3),
-                **{f"{k}_ms_back_to_back": [t[0] for t in v] for k, v in times.items()},
-                **{f"{k}_ms_host_bound": [t[1] for t in v] for k, v in times.items()},
+                "one_pass_ms_back_to_back": [t[0] for t in times],
+                "one_pass_ms_host_bound": [t[1] for t in times],
             }
-    emit("onepass_ab", order="two_pass one_pass one_pass two_pass",
-         empty_kernel_ms_back_to_back=floor_ms, empty_kernel_ms_host_bound=floor_host_ms,
-         one_pass_small_n_ms_back_to_back=ladder, designs=ab, device=name, nvidia_smi=smi)
+    emit("onepass_ab", empty_kernel_ms_back_to_back=floor_ms,
+         empty_kernel_ms_host_bound=floor_host_ms, one_pass_small_n_ms_back_to_back=ladder,
+         designs=ab, device=name, nvidia_smi=smi)
     kernels = []
     for kernel in KERNEL_SHAPE:
         row = time_kernel(kernel, *cases[kernel][main_case[kernel]])
@@ -999,8 +1058,8 @@ def _profile(fn) -> dict:
         reverse=True,
     )
     device_ms = sum(r[0] for r in rows) / 1000.0
-    # the port's own kernels by name, template arguments kept (which
-    # factor, one-pass or two-pass), argument list cut
+    # the port's own kernels by name (which finish) and template arguments
+    # (which factor), argument list cut
     port_kernels = {k[: k.find(">(") + 1]: c for _, k, c in rows if "nls::" in k}
     return dict(
         wall_ms=wall_ms, device_busy_ms=device_ms,

@@ -31,7 +31,6 @@
 //   vector loads from persistent blocks that load their next tile while
 //   they reduce the current one.
 #include "onepass.cuh"
-#include "partials.cuh"
 
 namespace {
 
@@ -57,17 +56,6 @@ int nls_maha3_launch(int device, const float* params, const float* packed, int b
                      float* out, void* stream) {
   return nls::onepass::launch<Maha3>(device, params, packed, batch, n, ld, loss_code, workspace,
                                      counters, out, stream);
-}
-
-// The two-pass design this file had before (partials.cuh), kept to time
-// against the one-pass kernel: packed (batch, 16, n) contiguous, partials
-// (batch, nls_maha3_two_pass_num_blocks(n), 10).
-int nls_maha3_two_pass_num_blocks(int64_t n) { return nls::num_blocks(n); }
-
-int nls_maha3_two_pass_launch(int device, const float* params, const float* packed, int batch,
-                              int64_t n, int loss_code, float* partials, float* out,
-                              void* stream) {
-  return nls::launch<Maha3>(device, params, packed, batch, n, loss_code, partials, out, stream);
 }
 
 }  // extern "C"

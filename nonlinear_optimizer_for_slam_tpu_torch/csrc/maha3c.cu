@@ -39,7 +39,6 @@
 //   streams aligned vector loads from as many persistent blocks as the card
 //   holds, each loading its next tile while it reduces the current one.
 #include "onepass.cuh"
-#include "partials.cuh"
 
 namespace {
 
@@ -65,17 +64,6 @@ int nls_maha3c_launch(int device, const float* params, const float* packed, int 
                       float* out, void* stream) {
   return nls::onepass::launch<Maha3c>(device, params, packed, batch, n, ld, loss_code, workspace,
                                       counters, out, stream);
-}
-
-// The two-pass design this file had before (partials.cuh), kept to time
-// against the one-pass kernel: packed (batch, 10, n) contiguous, partials
-// (batch, nls_maha3c_two_pass_num_blocks(n), 10).
-int nls_maha3c_two_pass_num_blocks(int64_t n) { return nls::num_blocks(n); }
-
-int nls_maha3c_two_pass_launch(int device, const float* params, const float* packed, int batch,
-                               int64_t n, int loss_code, float* partials, float* out,
-                               void* stream) {
-  return nls::launch<Maha3c>(device, params, packed, batch, n, loss_code, partials, out, stream);
 }
 
 }  // extern "C"

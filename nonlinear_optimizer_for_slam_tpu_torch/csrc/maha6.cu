@@ -30,7 +30,6 @@
 //   persistent blocks as the card holds, each loading its next tile while
 //   it reduces the current one.
 #include "onepass.cuh"
-#include "partials.cuh"
 
 namespace {
 
@@ -56,17 +55,6 @@ int nls_maha6_launch(int device, const float* params, const float* packed, int b
                      float* out, void* stream) {
   return nls::onepass::launch<Maha6>(device, params, packed, batch, n, ld, loss_code, workspace,
                                      counters, out, stream);
-}
-
-// The two-pass design this file had before (partials.cuh), kept to time
-// against the one-pass kernel: packed (batch, 16, n) contiguous, partials
-// (batch, nls_maha6_two_pass_num_blocks(n), 28).
-int nls_maha6_two_pass_num_blocks(int64_t n) { return nls::num_blocks(n); }
-
-int nls_maha6_two_pass_launch(int device, const float* params, const float* packed, int batch,
-                              int64_t n, int loss_code, float* partials, float* out,
-                              void* stream) {
-  return nls::launch<Maha6>(device, params, packed, batch, n, loss_code, partials, out, stream);
 }
 
 // An empty kernel through the same ctypes path: the launch floor.

@@ -1,8 +1,11 @@
 // One-launch, fixed-order reduction of per-factor terms for Hopper, used by
-// maha6.cu, maha3.cu, maha3c.cu and p2p.cu. A kernel file names its factor
-// as a struct with kRows, kParams, kOut and accumulate<kLoss>(prm, f, acc)
-// (as for partials.cuh) and exports nls::onepass::launch<Factor> through a
-// plain C function.
+// maha6.cu, maha3.cu, maha3c.cu, reproj.cu and p2p.cu. A kernel file names
+// its factor as a struct with kRows, kParams, kOut and a device function
+// accumulate<kLoss>(prm, f, acc) that adds one factor's kOut terms into acc
+// (csrc/factor_math.cuh), and exports nls::onepass::launch<Factor> through
+// a plain C function. params is a device (B, kParams) float32 tensor, a
+// pointer and not a by-value argument, so the pose never crosses to the
+// host.
 //
 // Layout. packed is (B, kRows, ld) float32 with N <= ld lanes in use: row r
 // of problem b starts at (b kRows + r) ld. ld is a multiple of 4 and the
@@ -21,13 +24,15 @@
 //     are padded to kWidth (a power of two) and halved at shuffle offsets
 //     16, 8, ...: in each round a lane keeps one half of its values
 //     (keeps_upper) and adds its partner's copy of that half. Output k ends
-//     on lane owner(k): 31 shuffles for 28 outputs (maha6, p2p), 16 for 10
-//     (maha3, maha3c), against 5 an output for a shuffle-down tree of each.
+//     on lane owner(k): 31 shuffles for 28 outputs (maha6, reproj, p2p), 16
+//     for 10 (maha3, maha3c), against 5 an output for a shuffle-down tree
+//     of each.
 //  3. The 8 warps' sums are added in warp order through shared memory, and
 //     the tile's sum goes to its own slot, tile_partials[b, k, tile].
-//  4. The last block of a problem to finish adds the tiles: lane j of the
-//     warp that owns output k takes tiles j, j + 32, ... in order, then the
-//     32 lane sums meet in a butterfly (offsets 16, 8, 4, 2, 1).
+//  4. One block of a problem adds the tiles (the last to finish, or the
+//     first of its cluster: see below): lane j of the warp that owns output
+//     k takes tiles j, j + 32, ... in order, then the 32 lane sums meet in a
+//     butterfly (offsets 16, 8, 4, 2, 1).
 // Blocks are persistent (block x takes tiles x, x + gridDim.x, ...), and
 // the grid is as many blocks as the card holds at once, capped at the tile
 // count; as each tile's sum has its own slot, the grid never enters the
@@ -63,6 +68,22 @@
 // non-zero: that poisons only a CUDA context that the fault has already
 // lost.
 //
+// The cluster finish. A problem of at most kClusterTiles = 16 tiles
+// (N <= 8,192) takes one block a tile, and its blocks form one thread block
+// cluster (16 is above the portable 8, so the kernel allows non-portable
+// sizes). Each block writes its tile sum into the shared memory of the
+// cluster's first block through distributed shared memory, which it may do
+// only once every block of the cluster has started: it arrives at the
+// cluster's barrier when it starts and waits before that write, so the
+// wait overlaps its loads and factors. After a second barrier the first
+// block adds the tiles as step 4 does (lane j takes tile j, then the
+// butterfly), by the same code. So the bits are those of the ticket's
+// finish, with no counter, no fence and no L2 round trip. On an H100 at
+// 700 W it took reproj 4.2 us at 2 and 8 tiles and 4.4 at 16, against
+// 5.0-5.2 for the ticket's finish on the same problems zero-padded to 17
+// tiles. Larger problems keep the ticket: a cluster holds at most 16
+// blocks, and the cluster finish takes one block a tile.
+//
 // No tensor cores. H = sum w J^T J is a (6 x N) by (N x 6) product of depth
 // N, which the tensor cores take only in TF32 or bf16; evaluation paths stay
 // in full float32 (reduced precision stalls LM). And it does about 5 float
@@ -75,7 +96,10 @@
 #include "factor_math.cuh"
 
 #ifdef __CUDACC__
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
 #endif
 
 namespace nls {
@@ -85,9 +109,22 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLanesPerThread = 2;
 constexpr int kTile = kThreads * kLanesPerThread;
+// Tile sums a lane of the finishing block reads before it adds them.
+constexpr int kFinishBatch = 8;
 
 // Tiles of a problem of n lanes.
 NLS_HD int64_t num_tiles(int64_t n) { return n > 0 ? (n + kTile - 1) / kTile : 0; }
+
+// The most tiles a problem may have for the cluster finish: one block a
+// tile, all in one cluster.
+constexpr int kClusterTiles = 16;
+
+// Blocks of the cluster a problem of n lanes takes for the cluster finish,
+// or 0 for the ticket's finish.
+NLS_HD int64_t cluster_blocks(int64_t n) {
+  const int64_t tiles = num_tiles(n);
+  return tiles <= kClusterTiles ? (tiles > 0 ? tiles : 1) : 0;
+}
 
 // Floats of tile_partials that a launch over batch problems of n lanes and
 // k_out outputs writes.
@@ -169,13 +206,13 @@ __device__ __forceinline__ void add_lanes(const float* prm, const Vec (&v)[Facto
   }
 }
 
-// The block's sum of every thread's acc into partials[k * tiles] (k <
-// kOut), in the fixed order of steps 2 and 3. Ends with a barrier, after
-// which warp_out may be reused.
+// The block's sum of every thread's acc into dst[k * stride] (k < kOut),
+// in the fixed order of steps 2 and 3. Ends with a barrier, after which
+// warp_out may be reused.
 template <int kOut, int kWidth>
 __device__ __forceinline__ void write_tile_sum(float (&acc)[kWidth],
-                                               float (&warp_out)[kWarps][kOut],
-                                               float* partials, int64_t tiles) {
+                                               float (&warp_out)[kWarps][kOut], float* dst,
+                                               int64_t stride) {
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const float s = reduce_scatter<kWidth>(acc, lane);
@@ -186,13 +223,49 @@ __device__ __forceinline__ void write_tile_sum(float (&acc)[kWidth],
     float t = 0.0f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) t += warp_out[w][threadIdx.x];
-    partials[threadIdx.x * tiles] = t;
+    dst[threadIdx.x * stride] = t;
   }
   __syncthreads();
 }
 
-// Step 4: the block that draws the last ticket of its problem adds the
-// tiles and resets the counter.
+// Step 4: out[k] = the sum of load(k, t) over the tiles t, for k < kOut:
+// lane j of warp k % kWarps takes tiles j, j + 32, ... in order, then the
+// butterfly. Both finishes call it, so they add in one order.
+template <int kOut, class Load>
+__device__ __forceinline__ void add_tiles(int64_t tiles, Load load, float* out) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  constexpr int kPer = (kOut + kWarps - 1) / kWarps;  // outputs of a warp
+  float s[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) s[q] = 0.0f;
+  for (int64_t t0 = lane; t0 < tiles; t0 += 32 * kFinishBatch) {
+    float x[kPer][kFinishBatch];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int k = warp + q * kWarps;
+#pragma unroll
+      for (int u = 0; u < kFinishBatch; ++u) {
+        const int64_t t = t0 + 32 * u;
+        x[q][u] = (k < kOut && t < tiles) ? load(k, t) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+#pragma unroll
+      for (int u = 0; u < kFinishBatch; ++u) s[q] += x[q][u];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int k = warp + q * kWarps;
+    const float total = butterfly_sum(s[q]);
+    if (k < kOut && lane == 0) out[k] = total;
+  }
+}
+
+// The ticket's finish: the block that draws the last ticket of its problem
+// adds the tiles, read through L2, and resets the counter.
 template <int kOut>
 __device__ __forceinline__ void finish_if_last(const float* partials, int64_t tiles,
                                                unsigned int* counter, float* out,
@@ -203,38 +276,19 @@ __device__ __forceinline__ void finish_if_last(const float* partials, int64_t ti
   __syncthreads();
   if (*ticket != gridDim.x - 1) return;
   __threadfence();  // every other block's tile sums, visible to this one
-
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  constexpr int kPer = (kOut + kWarps - 1) / kWarps;  // outputs of a warp
-  constexpr int kBatch = 8;  // tiles of a lane's chain read before adding
-  float s[kPer];
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) s[q] = 0.0f;
-  for (int64_t t0 = lane; t0 < tiles; t0 += 32 * kBatch) {
-    float x[kPer][kBatch];
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const int k = warp + q * kWarps;
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int64_t t = t0 + 32 * u;
-        x[q][u] = (k < kOut && t < tiles) ? __ldcg(partials + k * tiles + t) : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) s[q] += x[q][u];
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) {
-    const int k = warp + q * kWarps;
-    const float total = butterfly_sum(s[q]);
-    if (k < kOut && lane == 0) out[k] = total;
-  }
+  add_tiles<kOut>(
+      tiles, [&](int k, int64_t t) { return __ldcg(partials + k * tiles + t); }, out);
   if (threadIdx.x == 0) *counter = 0u;
+}
+
+// A thread's loads of its lanes of one tile: one vector a row.
+template <int kRows>
+__device__ __forceinline__ void load_tile(Vec (&v)[kRows], const float* base, int64_t ld,
+                                          int64_t tile, int64_t lane0) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    v[r] = __ldg(reinterpret_cast<const Vec*>(base + r * ld + tile * kTile + lane0));
+  }
 }
 
 // Grid (blocks, B) of kThreads; see the file comment. params (B, kParams),
@@ -263,12 +317,7 @@ __global__ void __launch_bounds__(kThreads)
   // The first tile's loads go out before the wait for the params.
   Vec v[kRows];
   int64_t tile = blockIdx.x;
-  if (tile < tiles && tile * kTile + lane0 < n) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      v[r] = __ldg(reinterpret_cast<const Vec*>(base + r * ld + tile * kTile + lane0));
-    }
-  }
+  if (tile < tiles && tile * kTile + lane0 < n) load_tile<kRows>(v, base, ld, tile, lane0);
   if (threadIdx.x < kParams) prm[threadIdx.x] = params[b * kParams + threadIdx.x];
   __syncthreads();
 
@@ -280,21 +329,108 @@ __global__ void __launch_bounds__(kThreads)
     if (i0 < n) add_lanes<Factor, kLoss, kWidth>(prm, v, n - i0, acc);
     // The block's next tile loads while this one is reduced.
     const int64_t next = tile + gridDim.x;
-    if (next < tiles && next * kTile + lane0 < n) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        v[r] = __ldg(reinterpret_cast<const Vec*>(base + r * ld + next * kTile + lane0));
-      }
-    }
+    if (next < tiles && next * kTile + lane0 < n) load_tile<kRows>(v, base, ld, next, lane0);
     write_tile_sum<kOut, kWidth>(acc, warp_out, partials + tile, tiles);
   }
   finish_if_last<kOut>(partials, tiles, counters + b, out + b * kOut, &ticket);
+}
+
+// The cluster's barrier in two halves (PTX barrier.cluster). A block may
+// write another block's shared memory only once every block of the
+// cluster has started: it arrives when it starts and waits before its
+// first such write. Relaxed: the arrival publishes nothing.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// Grid (cluster_blocks(n), B) in clusters of (cluster_blocks(n), 1, 1):
+// block x takes tile x of problem blockIdx.y, and the cluster's first block
+// adds the tiles (the cluster finish of the file comment). params, packed
+// and out as for onepass_kernel.
+template <class Factor, int kLoss>
+__global__ void __launch_bounds__(kThreads)
+    onepass_cluster_kernel(const float* __restrict__ params, const float* __restrict__ packed,
+                           int64_t n, int64_t ld, float* __restrict__ out) {
+  constexpr int kRows = Factor::kRows;
+  constexpr int kParams = Factor::kParams;
+  constexpr int kOut = Factor::kOut;
+  constexpr int kWidth = scatter_width(kOut);
+  __shared__ float prm[kParams];
+  __shared__ float warp_out[kWarps][kOut];
+  __shared__ float tile_sums[kClusterTiles][kOut];  // the first block's are read
+
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();  // waited for after this block's factors
+  const int b = blockIdx.y;
+  const int64_t tiles = num_tiles(n);
+  const int64_t tile = blockIdx.x;
+  const float* base = packed + static_cast<int64_t>(b) * kRows * ld;
+  const int64_t lane0 = kLanesPerThread * static_cast<int64_t>(threadIdx.x);
+
+  Vec v[kRows];
+  const bool has_lanes = tile < tiles && tile * kTile + lane0 < n;
+  if (has_lanes) load_tile<kRows>(v, base, ld, tile, lane0);
+  if (threadIdx.x < kParams) prm[threadIdx.x] = params[b * kParams + threadIdx.x];
+  __syncthreads();
+
+  float acc[kWidth];
+#pragma unroll
+  for (int k = 0; k < kWidth; ++k) acc[k] = 0.0f;
+  if (has_lanes) add_lanes<Factor, kLoss, kWidth>(prm, v, n - (tile * kTile + lane0), acc);
+  cluster_wait();  // every block of the cluster has started
+  if (tile < tiles) {
+    float* first = cluster.map_shared_rank(&tile_sums[0][0], 0);
+    write_tile_sum<kOut, kWidth>(acc, warp_out, first + tile * kOut, 1);
+  }
+  cluster.sync();  // every tile sum written, and visible to the first block
+  if (cluster.block_rank() == 0) {
+    add_tiles<kOut>(tiles, [&](int k, int64_t t) { return tile_sums[t][k]; }, out + b * kOut);
+  }
+}
+
+template <class Factor, int kLoss>
+cudaError_t launch_cluster(int device, int blocks, const float* params, const float* packed,
+                           int batch, int64_t n, int64_t ld, float* out, cudaStream_t stream) {
+  const auto kernel = onepass_cluster_kernel<Factor, kLoss>;
+  // Clusters above the portable 8 blocks, allowed once on each device (the
+  // attribute acts on the current one; devices past 64 set it every call).
+  static std::atomic<unsigned long long> allowed{0};
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if ((allowed.load() & bit) == 0) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    allowed.fetch_or(bit);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks, batch);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&config, kernel, params, packed, n, ld, out);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <class Factor, int kLoss>
 cudaError_t launch_loss(int device, const float* params, const float* packed, int batch,
                         int64_t n, int64_t ld, float* tile_partials, unsigned int* counters,
                         float* out, cudaStream_t stream) {
+  const int64_t cluster = cluster_blocks(n);
+  if (cluster > 0) {
+    return launch_cluster<Factor, kLoss>(device, static_cast<int>(cluster), params, packed,
+                                         batch, n, ld, out, stream);
+  }
   const auto kernel = onepass_kernel<Factor, kLoss>;
   // Blocks resident on the card at once, queried on the first call of each
   // instantiation: a query per launch would cost microseconds.
@@ -316,10 +452,11 @@ cudaError_t launch_loss(int device, const float* params, const float* packed, in
 
 // params (batch, kParams), packed (batch, kRows, ld), tile_partials
 // (workspace_floats(batch, n, kOut)), counters (batch,) zero, out
-// (batch, kOut): device pointers. Launches on `stream` and does not
-// synchronise. Returns a cudaError_t: cudaErrorInvalidValue for a bad
-// loss code, batch, n, ld or alignment, else cudaGetLastError() after the
-// launch.
+// (batch, kOut): device pointers (the cluster finish, cluster_blocks(n) > 0,
+// leaves tile_partials and counters alone, and they may be null then).
+// Launches on `stream` and does not synchronise.
+// Returns a cudaError_t: cudaErrorInvalidValue for a bad loss code, batch,
+// n, ld or alignment, else cudaGetLastError() after the launch.
 template <class Factor>
 int launch(int device, const float* params, const float* packed, int batch, int64_t n,
            int64_t ld, int loss_code, float* tile_partials, unsigned int* counters, float* out,

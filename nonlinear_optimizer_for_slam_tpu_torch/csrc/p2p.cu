@@ -34,7 +34,6 @@
 //   persistent blocks as the card holds, each loading its next tile while
 //   it reduces the current one.
 #include "onepass.cuh"
-#include "partials.cuh"
 
 namespace {
 
@@ -60,17 +59,6 @@ int nls_p2p_launch(int device, const float* params, const float* packed, int bat
                    float* out, void* stream) {
   return nls::onepass::launch<P2p>(device, params, packed, batch, n, ld, loss_code, workspace,
                                    counters, out, stream);
-}
-
-// The two-pass design this file had before (partials.cuh), kept to time
-// against the one-pass kernel: packed (batch, 10, n) contiguous, partials
-// (batch, nls_p2p_two_pass_num_blocks(n), 28).
-int nls_p2p_two_pass_num_blocks(int64_t n) { return nls::num_blocks(n); }
-
-int nls_p2p_two_pass_launch(int device, const float* params, const float* packed, int batch,
-                            int64_t n, int loss_code, float* partials, float* out,
-                            void* stream) {
-  return nls::launch<P2p>(device, params, packed, batch, n, loss_code, partials, out, stream);
 }
 
 }  // extern "C"

@@ -8,9 +8,8 @@ compact Gram rows), ``reproj`` (pinhole reprojection) and ``p2p``
 Jacobians, applies the robust-loss weight and reduces the per-factor
 (upper-triangle J^T J, J^T r, cost) terms, with nothing per-factor written
 to device memory. Sources: ``csrc/<name>.cu`` (per-factor math in
-``csrc/factor_math.cuh``; the one-launch reduction of maha6, maha3, maha3c
-and p2p in ``csrc/onepass.cuh``, the two-pass reduction of reproj in
-``csrc/partials.cuh``), built by ``ops/_build.py``.
+``csrc/factor_math.cuh``, the one-launch reduction that all five share in
+``csrc/onepass.cuh``), built by ``ops/_build.py``.
 
 Every kernel has a plain PyTorch version beside it, with the same
 arithmetic and output order. A wrapper given CPU tensors takes the plain
@@ -31,11 +30,10 @@ maha6 and p2p; (B, 8) [R2 row-major 4, t2 2, loss a, loss b] for maha3 and
 maha3c; (B, 20) [R row-major 9, t 3, inv_fx, inv_fy, cx, cy, loss a,
 loss b, min depth, 0] for reproj.
 
-On the card, the one-pass kernels (:data:`ONE_PASS`) read rows that start
-on 16-byte boundaries, so their buffers are (B, rows, N) views whose rows
-start every ld floats, ld a multiple of 4, with the lanes past N zero:
-:func:`lane_aligned` makes one, and the packers call it for CUDA tensors.
-reproj takes contiguous buffers.
+On the card, the kernels read rows that start on 16-byte boundaries, so
+their buffers are (B, rows, N) views whose rows start every ld floats, ld
+a multiple of 4, with the lanes past N zero: :func:`lane_aligned` makes
+one, and the packers call it for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -78,16 +76,26 @@ _SHAPES = {
 
 # The kernels built on csrc/onepass.cuh: one launch a call, rows that
 # start on 16-byte boundaries.
-ONE_PASS = ("maha6", "maha3", "maha3c", "p2p")
-# Lanes of one tile (onepass.cuh: kTile), and the alignment of a row, in
+ONE_PASS = ("maha6", "maha3", "maha3c", "reproj", "p2p")
+# Lanes of one tile (onepass.cuh: kTile), the most tiles of a problem that
+# takes the cluster finish (kClusterTiles), and the alignment of a row, in
 # floats.
 ONE_PASS_TILE = 512
+ONE_PASS_CLUSTER_TILES = 16
 LANE_ALIGN = 4
 
 
 def onepass_num_tiles(n: int) -> int:
     """Tiles of a problem of ``n`` lanes: onepass.cuh's ``num_tiles``."""
     return -(-n // ONE_PASS_TILE) if n > 0 else 0
+
+
+def onepass_cluster_blocks(n: int) -> int:
+    """Blocks of the cluster that a problem of ``n`` lanes takes for the
+    cluster finish, or 0 for the ticket's finish: onepass.cuh's
+    ``cluster_blocks``."""
+    tiles = onepass_num_tiles(n)
+    return max(tiles, 1) if tiles <= ONE_PASS_CLUSTER_TILES else 0
 
 
 def onepass_workspace_floats(batch: int, n: int, n_out: int) -> int:
@@ -469,17 +477,6 @@ def p2p_plain(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
 # ----------------------------------------------------------------------------
 
 
-_TWO_PASS_ARGS = [
-    ctypes.c_int,  # device
-    ctypes.c_void_p,  # params
-    ctypes.c_void_p,  # packed
-    ctypes.c_int,  # batch
-    ctypes.c_int64,  # n
-    ctypes.c_int,  # loss code
-    ctypes.c_void_p,  # partials
-    ctypes.c_void_p,  # out
-    ctypes.c_void_p,  # stream
-]
 _ONE_PASS_ARGS = [
     ctypes.c_int,  # device
     ctypes.c_void_p,  # params
@@ -495,15 +492,9 @@ _ONE_PASS_ARGS = [
 ]
 
 # C function -> (argtypes, restype), for every function the wrappers call:
-# the one-pass launches, the two-pass launches and block counts (of reproj,
-# and of the design the one-pass kernels had before), the empty kernel.
-_TWO_PASS_PREFIXES = [f"nls_{k}" for k in _SHAPES if k not in ONE_PASS] + [
-    f"nls_{k}_two_pass" for k in ONE_PASS
-]
+# the launches and the empty kernel.
 _SIGNATURES = {
     **{f"nls_{k}_launch": (_ONE_PASS_ARGS, ctypes.c_int) for k in ONE_PASS},
-    **{f"{p}_launch": (_TWO_PASS_ARGS, ctypes.c_int) for p in _TWO_PASS_PREFIXES},
-    **{f"{p}_num_blocks": ([ctypes.c_int64], ctypes.c_int) for p in _TWO_PASS_PREFIXES},
     "nls_empty_launch": ([ctypes.c_int, ctypes.c_void_p], ctypes.c_int),  # device, stream
 }
 
@@ -551,61 +542,6 @@ def _current_stream(index: int) -> int:
     """The handle of the current CUDA stream of device ``index``, without
     building a ``torch.cuda.Stream`` (which costs microseconds a call)."""
     return torch._C._cuda_getCurrentRawStream(index)
-
-
-def _two_pass(name: str, prefix: str, params: Tensor, packed: Tensor, loss_code: int,
-              batch: int, n: int) -> Tensor:
-    """Launches the two-pass kernel (``csrc/partials.cuh``) whose C
-    functions are ``<prefix>_num_blocks`` and ``<prefix>_launch`` on CUDA
-    tensors checked by :func:`_check`, on the current stream, without
-    synchronising; counts nothing."""
-    if not (packed.is_contiguous() and params.is_contiguous()):
-        raise ValueError(f"{name} takes contiguous params and packed")
-    n_out = _SHAPES[name][2]
-    index = _device_index(packed)
-    num_blocks = _fn(name, f"{prefix}_num_blocks")(n)
-    partials = torch.empty(
-        (batch, num_blocks, n_out), dtype=torch.float32, device=packed.device
-    )
-    out = torch.empty((batch, n_out), dtype=torch.float32, device=packed.device)
-    err = _fn(name, f"{prefix}_launch")(
-        index,
-        params.data_ptr(),
-        packed.data_ptr(),
-        batch,
-        n,
-        loss_code,
-        partials.data_ptr(),
-        out.data_ptr(),
-        _current_stream(index),
-    )
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    return out
-
-
-def _partials(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
-    """Two-pass kernel ``name`` (reproj) on (B, params) and (B, rows, N)
-    float32 -> (B, out) float32. CPU tensors take the plain
-    version; CUDA tensors launch the kernel on the current stream, without
-    synchronising."""
-    batch, n = _check(name, params, packed, loss_code)
-    if packed.device.type == "cpu":
-        return _TERMS[name](params, packed, loss_code).sum(dim=-1)
-    out = _two_pass(name, f"nls_{name}", params, packed, loss_code, batch, n)
-    LAUNCHES[name] += 1
-    return out
-
-
-def _partials_two_pass(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
-    """One-pass kernel ``name`` (:data:`ONE_PASS`) through the two-pass
-    design that preceded it (``csrc/partials.cuh``), on a contiguous CUDA
-    (B, rows, N) buffer: for timing the two designs against each other. Counts no launch;
-    nothing on the main path calls it."""
-    batch, n = _check(name, params, packed, loss_code)
-    if packed.device.type != "cuda":
-        raise ValueError(f"{name}: the two-pass design takes CUDA tensors")
-    return _two_pass(name, f"nls_{name}_two_pass", params, packed, loss_code, batch, n)
 
 
 # (kernel, device index, stream) -> (tile sums, counters): the one-pass
@@ -685,8 +621,11 @@ def _onepass(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tenso
     n_out = _SHAPES[name][2]
     index = _device_index(packed)
     stream = _current_stream(index)
-    floats = onepass_workspace_floats(batch, n, n_out)
-    tile_sums, counters = _workspace(name, packed.device, index, stream, floats, batch)
+    # the cluster finish touches no workspace
+    tile_sums = counters = None
+    if onepass_cluster_blocks(n) == 0:
+        floats = onepass_workspace_floats(batch, n, n_out)
+        tile_sums, counters = _workspace(name, packed.device, index, stream, floats, batch)
     out = torch.empty((batch, n_out), dtype=torch.float32, device=packed.device)
     err = _fn(name, f"nls_{name}_launch")(
         index,
@@ -696,8 +635,8 @@ def _onepass(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tenso
         n,
         ld,
         loss_code,
-        tile_sums.data_ptr(),
-        counters.data_ptr(),
+        None if tile_sums is None else tile_sums.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         out.data_ptr(),
         stream,
     )
@@ -758,9 +697,11 @@ def maha3c_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
 
 
 def reproj_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
-    """(B, 20) params and (B, 6, N) packed -> (B, 28) float32
-    (``csrc/reproj.cu``; the plain version on the CPU)."""
-    return _partials("reproj", params, packed, loss_code)
+    """(B, 20) params and (B, 6, N) packed -> (B, 28) float32: per problem,
+    the 21 upper-triangle entries of H, the 6 of g and the cost
+    (``csrc/reproj.cu``; the plain version on the CPU). A CUDA buffer is
+    laid out as :func:`lane_aligned` makes it."""
+    return _onepass("reproj", params, packed, loss_code)
 
 
 def p2p_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
@@ -823,11 +764,13 @@ def pack_maha3_compact(data: MahalanobisData) -> Tensor:
 
 
 def pack_reproj(data: ReprojectionData) -> Tensor:
-    """(N, ...) SoA -> packed transposed (6, N) float32 rows. The JAX
-    package's ``pack_reproj`` adds 2 zero rows, sublane padding for the
-    TPU; they carry nothing and are left out."""
+    """(N, ...) SoA -> packed transposed (6, N) float32 rows: contiguous on
+    the CPU, laid out by :func:`lane_aligned` on the card. The JAX package's
+    ``pack_reproj`` adds 2 zero rows, sublane padding for the TPU; they
+    carry nothing and are left out."""
     rows = torch.cat([data.local_points, data.matched_pixels, data.mask[:, None]], dim=1)
-    return rows.T.to(torch.float32).contiguous()
+    rows = rows.T.to(torch.float32)
+    return lane_aligned(rows) if rows.is_cuda else rows.contiguous()
 
 
 def pack_p2p(data: PointToPlaneData) -> Tensor:
@@ -845,8 +788,7 @@ def _eval(name, params_fn, dim, rotation, translation, packed, loss, loss_ab_fn=
     params = params_fn(rotation, translation, loss_ab)
     lead = packed.dim() == 2  # one problem
     params = params[None] if lead else params.contiguous()
-    launch = _onepass if name in ONE_PASS else _partials
-    out = launch(name, params, packed[None] if lead else packed, code)
+    out = _onepass(name, params, packed[None] if lead else packed, code)
     return unpack_out(out[0] if lead else out, dim)
 
 

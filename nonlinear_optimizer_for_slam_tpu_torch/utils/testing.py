@@ -211,8 +211,11 @@ def check_reprojection_oracle(pose: Pose, summary, oracle, rtol: float = 1e-9):
 
 # Threads of a one-pass block and their warps (onepass.cuh: kThreads,
 # kWarps); a thread adds ONE_PASS_TILE // ONE_PASS_THREADS lanes of a tile.
+# The finishing block's lanes read the tile sums in batches of
+# ONE_PASS_FINISH_BATCH (kFinishBatch).
 ONE_PASS_THREADS = 256
 ONE_PASS_WARPS = ONE_PASS_THREADS // 32
+ONE_PASS_FINISH_BATCH = 8
 
 
 def onepass_scatter_width(k_out: int) -> int:
@@ -258,7 +261,10 @@ def onepass_emulate(terms: np.ndarray) -> np.ndarray:
     one float32 addition at a time in the one-pass kernel's order
     (onepass.cuh, steps 1-4): a thread's lanes of a tile in index order, the
     warp reduce-scatter, the warps in order, then each output's tiles in 32
-    lane chains (tiles j, j + 32, ...) joined by a butterfly."""
+    lane chains joined by a butterfly. As ``add_tiles`` reads them, in both
+    finishes: lane j takes tiles j, j + 32, ... in batches of 8 reads
+    (j + 256 i + 32 u, u < 8), a read past the last tile giving +0, and a
+    lane with no tile left adds no batch."""
     k_out, n = terms.shape
     width = onepass_scatter_width(k_out)
     owners = [onepass_owner(k, width) for k in range(k_out)]
@@ -281,10 +287,14 @@ def onepass_emulate(terms: np.ndarray) -> np.ndarray:
         for w in range(ONE_PASS_WARPS):
             tile_sum = tile_sum + held[w, owners]
         sums[:, t] = tile_sum
-    chain = np.zeros((k_out, 32), np.float32)
-    for t in range(tiles):
-        chain[:, t % 32] = chain[:, t % 32] + sums[:, t]
     lanes = np.arange(32)
+    chain = np.zeros((k_out, 32), np.float32)
+    per_batch = 32 * ONE_PASS_FINISH_BATCH
+    reads = np.zeros((k_out, -(-tiles // per_batch) * per_batch), np.float32)
+    reads[:, :tiles] = sums
+    for t0 in range(0, reads.shape[1], per_batch):
+        for u in range(ONE_PASS_FINISH_BATCH):
+            chain = np.where(t0 + lanes < tiles, chain + reads[:, t0 + 32 * u + lanes], chain)
     off = 16
     while off >= 1:
         chain = chain + chain[:, lanes ^ off]

@@ -14,10 +14,10 @@ losses and for a batch of 3 ragged problems in one buffer, float32:
 - reproj: against ``pk.reproj_eval_quadratic`` with the tolerance of
   tests/test_pallas.py:105-107 (rtol 2e-4, atol 1e-3), with points on both
   sides of the depth gate;
-- maha3c's terms summed in the one-pass kernel's order
+- maha3c's and reproj's terms summed in the one-pass kernel's order
   (``utils.testing.onepass_emulate``, ``csrc/onepass.cuh``) against the
-  Pallas kernel, at N = 700 and 1,025 (three 512-lane tiles) for all 7
-  losses, with maha3c's tolerance above.
+  Pallas kernels, at N = 700 and 1,025 (three 512-lane tiles) for all 7
+  losses, each with its tolerance above.
 
 The packings are held to the JAX ones row for row, and the port's
 ``ops/reprojection`` (the "torch" backend) to the JAX module in float64 at
@@ -187,6 +187,38 @@ def test_reproj_plain_matches_pallas(problems, loss_name, loss_args):
     tdata = treproj.ReprojectionData(*(torch.as_tensor(a) for a in fields))
     got = ck.reproj_eval_quadratic(
         torch.as_tensor(R), torch.as_tensor(t), tdata, _port_intrinsics(torch.float32), tloss
+    )
+    _close(got, want, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("n", [700, 1025])
+@pytest.mark.parametrize("loss_name,loss_args", LOSS_ARGS, ids=LOSS_IDS)
+def test_reproj_onepass_order_matches_pallas(loss_name, loss_args, n):
+    """The port's per-factor terms (``reproj_terms``, the kernel's
+    arithmetic) added in the one-pass kernel's order, one float32 addition
+    at a time, against the Pallas kernel in interpret mode, with points on
+    both sides of the depth gate."""
+    rng = np.random.default_rng(n)
+    fields = _reproj_fields(rng, n)
+    pose = port.Pose.from_axis_angle(
+        rng.uniform(0.05, 0.3), rng.normal(size=3), 0.2 * rng.normal(size=3)
+    )
+    R, t = pose.rotation.astype(F32), pose.translation.astype(F32)
+    t[2] = 0.5  # the drawn points straddle the gate at the drawn pose
+    xw_z = fields[0] @ R[2] + t[2]
+    assert (xw_z < jreproj.MIN_DEPTH).sum() > 20 and (xw_z >= jreproj.MIN_DEPTH).sum() > 500
+    tloss, jloss = _losses(loss_name, loss_args)
+    packed = ck.pack_reproj(treproj.ReprojectionData(*(torch.as_tensor(a) for a in fields)))
+    code, loss_ab = ck.reproj_loss_ab(tloss, "cpu")
+    params = ck.reproj_params(
+        torch.as_tensor(R)[None], torch.as_tensor(t)[None], _port_intrinsics(torch.float32),
+        loss_ab,
+    )
+    terms = ck.reproj_terms(params, packed[None], code)[0].numpy()
+    got = ck.unpack_out(torch.as_tensor(testing.onepass_emulate(terms)), 6)
+    jdata = jreproj.ReprojectionData(*(jnp.asarray(a) for a in fields))
+    want = pk.reproj_eval_quadratic(
+        jnp.asarray(R), jnp.asarray(t), jdata, _jax_intrinsics(jnp.float32), jloss
     )
     _close(got, want, rtol=2e-4, atol=1e-3)
 

@@ -1,4 +1,4 @@
-"""The one-pass reduction of maha6, maha3, maha3c and p2p
+"""The one-pass reduction of maha6, maha3, maha3c, reproj and p2p
 (``csrc/onepass.cuh``), checked on the CPU.
 
 The kernel cannot run here, so three things that fix its results are
@@ -6,19 +6,23 @@ checked without it:
 
 - its geometry: g++ builds the header's ``__host__ __device__`` functions
   (tiles of N lanes, the workspace size, which lane holds which output of
-  the reduce-scatter) into a harness, held against the Python copy that
-  sizes the workspace and against a simulation of the reduce-scatter;
+  the reduce-scatter, which N take the cluster finish, the finishing
+  lanes' batch of reads) into a harness, held against the Python copy that
+  sizes the workspace and chooses the finish, against the emulation, and
+  against a simulation of the reduce-scatter;
 - its order of summation: a numpy emulation
   (``utils.testing.onepass_emulate``) adds the plain versions' per-factor
   terms (``ck._TERMS``) in the kernel's order, one float32 add at a time
   (the 2 lanes of a thread, the reduce-scatter, the 8 warps, the tiles'
-  lane chains and butterfly). Trailing zero lanes must change no bit, a
+  lane chains, read in batches of 8 as ``add_tiles`` reads them in both
+  finishes, and the butterfly). Trailing zero lanes must change no bit, a
   problem inside a ragged batch must give the bits it gives alone, and the
   sum must lie within N u sum|terms| of the float64 sum (u = 2^-24, the
-  bound of any order of N float32 additions). maha3c has no mask row: its
-  masked and zero lanes must add nothing either;
+  bound of any order of N float32 additions). maha3c has no mask row, and
+  reproj gates points closer than its minimum depth: their masked, gated
+  and zero lanes must add nothing either;
 - the buffers bound for the kernel: ``lane_aligned`` gives rows that start
-  every ld floats, ld % 4 == 0, zero past N, for the 16-row and the 10-row
+  every ld floats, ld % 4 == 0, zero past N, for the 16-, 10- and 6-row
   layouts, the packers apply it to CUDA buffers only, and the wrapper's
   layout check refuses any other layout.
 
@@ -42,6 +46,11 @@ from nonlinear_optimizer_for_slam_tpu_torch.core import lie
 from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
 from nonlinear_optimizer_for_slam_tpu_torch.ops.mahalanobis import MahalanobisData
 from nonlinear_optimizer_for_slam_tpu_torch.ops.point_to_plane import PointToPlaneData
+from nonlinear_optimizer_for_slam_tpu_torch.ops.reprojection import (
+    MIN_DEPTH,
+    CameraIntrinsics,
+    ReprojectionData,
+)
 from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
 
 CSRC = Path(port.__file__).resolve().parent / "csrc"
@@ -51,7 +60,8 @@ _emulate = testing.onepass_emulate
 _reduce_scatter = testing.onepass_reduce_scatter
 _width = testing.onepass_scatter_width
 _owner = testing.onepass_owner
-SIZES_N = (0, 1, 3, 4, 1023, 1024, 1025, 2047, 18712, 18713, 1_000_003)
+SIZES_N = (0, 1, 3, 4, 1023, 1024, 1025, 2047, 8192, 8193, 18712, 18713, 1_000_003)
+INTRINSICS = CameraIntrinsics.create(525.0, 525.0, 320.0, 240.0)
 
 HARNESS = r"""
 #include <cstdio>
@@ -63,12 +73,15 @@ using namespace nls::onepass;
 
 int main() {
   std::printf("tile %d\n", kTile);
+  std::printf("cluster_tiles %d\n", kClusterTiles);
+  std::printf("finish_batch %d\n", kFinishBatch);
   std::printf("threads %d %d\n", kThreads, kWarps);
   const long long ns[] = {%NS%};
   for (long long n : ns) {
     std::printf("n %lld %lld %lld %lld\n", n, static_cast<long long>(num_tiles(n)),
                 static_cast<long long>(workspace_floats(3, n, 28)),
                 static_cast<long long>(workspace_floats(1, n, 10)));
+    std::printf("cluster %lld %lld\n", n, static_cast<long long>(cluster_blocks(n)));
   }
   for (int k_out : {28, 10}) {
     const int w = scatter_width(k_out);
@@ -114,16 +127,16 @@ def geometry(tmp_path_factory):
         check=True, capture_output=True, timeout=120,
     )
     lines = subprocess.run([str(exe)], check=True, capture_output=True, text=True, timeout=60)
-    out = {"n": {}, "width": {}, "owner": {}, "held": {}, "upper": {}}
+    out = {"n": {}, "cluster": {}, "width": {}, "owner": {}, "held": {}, "upper": {}}
     for line in lines.stdout.splitlines():
         key, *vals = line.split()
         vals = [int(v) for v in vals]
-        if key == "tile":
-            out["tile"] = vals[0]
+        if key in ("tile", "cluster_tiles", "finish_batch"):
+            out[key] = vals[0]
         elif key == "threads":
             out["threads"] = tuple(vals)
-        elif key == "n":
-            out["n"][vals[0]] = tuple(vals[1:])
+        elif key in ("n", "cluster"):
+            out[key][vals[0]] = tuple(vals[1:])
         elif key == "width":
             out["width"][vals[0]] = vals[1]
         else:
@@ -146,6 +159,13 @@ def test_geometry_matches_python_copy(geometry, n):
     assert ws3 == ck.onepass_workspace_floats(1, n, 10) == tiles * 10
     # every lane lies in exactly one tile
     assert tiles * TILE >= n and (tiles - 1) * TILE < max(n, 1)
+    # the cluster finish: one block a tile up to 16 tiles (8,192 lanes), one
+    # block for no lane
+    assert geometry["cluster_tiles"] == ck.ONE_PASS_CLUSTER_TILES == 16
+    (blocks,) = geometry["cluster"][n]
+    assert blocks == ck.onepass_cluster_blocks(n) == (max(tiles, 1) if n <= 8192 else 0)
+    # the finishing lanes' batch of reads, as the emulation reads them
+    assert geometry["finish_batch"] == testing.ONE_PASS_FINISH_BATCH
 
 
 @pytest.mark.parametrize("k_out", [28, 10], ids=["maha6", "maha3"])
@@ -189,19 +209,45 @@ def _maha_data(rng, n):
     )
 
 
+def _reproj_data(rng, n):
+    """Points around z = 4, a tenth of them near or behind the 0.03 depth
+    gate, pixels in a 640 x 480 image, about 10 % masked."""
+    X = rng.normal(size=(n, 3)) + np.array([0.0, 0.0, 4.0])
+    X[: n // 10, 2] = rng.uniform(-1.0, 0.1, size=n // 10)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    return ReprojectionData(
+        f32(X), f32(rng.uniform(0.0, 640.0, size=(n, 2))), f32(rng.uniform(size=n) > 0.1)
+    )
+
+
 def _problem(rng, n, kernel="maha6"):
     """(rows, n) float32 of ``kernel``'s packing, about 10 % masked: maha3c's
     rows packed from Mahalanobis data (its mask folded into the Gram rows),
-    the others random rows with the mask in the last row."""
+    reproj's from points on both sides of its depth gate, the others random
+    rows with the mask in the last row."""
     if kernel == "maha3c":
         return ck.pack_maha3_compact(_maha_data(rng, n))
+    if kernel == "reproj":
+        return ck.pack_reproj(_reproj_data(rng, n))
     rows = ck._SHAPES[kernel][0]
     packed = rng.normal(size=(rows, n)).astype(np.float32)
     packed[rows - 1] = (rng.uniform(size=n) > 0.1).astype(np.float32)
     return torch.as_tensor(packed)
 
 
+def _small_rotations(rng, batch):
+    """(batch, 3, 3) float32 rotations within about 0.2 rad of the identity,
+    which keep reproj's points in front of the camera."""
+    q = np.concatenate([np.ones((batch, 1)), 0.1 * rng.normal(size=(batch, 3))], axis=1)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return lie.quat_to_rotmat(torch.as_tensor(q, dtype=torch.float32))
+
+
 def _params(kernel, rng, batch, loss):
+    if kernel == "reproj":
+        code, loss_ab = ck.reproj_loss_ab(loss, "cpu")
+        t = torch.as_tensor(0.1 * rng.normal(size=(batch, 3)), dtype=torch.float32)
+        return code, ck.reproj_params(_small_rotations(rng, batch), t, INTRINSICS, loss_ab)
     code, loss_ab = ck.maha6_loss_ab(loss, "cpu")
     if kernel in ("maha3", "maha3c"):
         theta = torch.as_tensor(rng.uniform(-np.pi, np.pi, size=batch), dtype=torch.float32)
@@ -275,6 +321,36 @@ def test_maha3c_masked_and_zero_lanes_add_nothing(rng, loss):
         np.testing.assert_array_equal(_emulate(swapped).view(np.uint32), want.view(np.uint32))
 
 
+@pytest.mark.parametrize("loss", ALL_LOSSES, ids=lambda l: type(l).__name__)
+def test_reproj_gated_masked_and_zero_lanes_add_nothing(rng, loss):
+    """reproj at t = 0, where the PnP minimizer starts: a point behind the
+    0.03 depth gate, a masked one and a zero lane of the padding (X = 0, so
+    Xw = t = 0, gated, with 1 / z taken at z = 1) all get weight and cost
+    +0, so every term is +0 or -0 (a +0 weight times a negative Jacobian
+    product is -0) and the cost +0, for all 7 losses. As the kernel's sums
+    start at +0, such terms leave every bit: the emulated sum is the same
+    with them replaced by +0 or by -0."""
+    n = 1500
+    data = _reproj_data(rng, n)
+    packed = torch.nn.functional.pad(ck.pack_reproj(data), (0, 2 * TILE + 7))
+    code, loss_ab = ck.reproj_loss_ab(loss, "cpu")
+    R = _small_rotations(rng, 1)
+    params = ck.reproj_params(R, torch.zeros((1, 3)), INTRINSICS, loss_ab)
+    terms = _terms("reproj", params, packed[None], code)[0]
+    depth = R[0, 2].numpy() @ packed[:3].numpy()
+    empty = np.flatnonzero((depth < MIN_DEPTH) | (packed[5].numpy() == 0))
+    assert np.isin(np.arange(n, packed.shape[-1]), empty).all()  # the padding
+    assert (depth[:n] < MIN_DEPTH).sum() > 50 and (data.mask.numpy() == 0).sum() > 50
+    assert (terms[:, empty] == 0).all()
+    assert not np.signbit(terms[27, empty]).any()  # the cost: +0
+    assert np.signbit(terms[:, empty]).any()  # the -0 products occur
+    want = _emulate(terms)
+    for zero in (0.0, -0.0):
+        swapped = terms.copy()
+        swapped[:, empty] = np.float32(zero)
+        np.testing.assert_array_equal(_emulate(swapped).view(np.uint32), want.view(np.uint32))
+
+
 @pytest.mark.parametrize("n", [1, 1023, 4097])
 @pytest.mark.parametrize("kernel", ck.ONE_PASS)
 def test_sum_within_float32_bound_of_f64(rng, kernel, n):
@@ -303,8 +379,9 @@ def _full_rows(view: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1023, 1025, 18713])
 def test_lane_aligned_rows(rng, n):
-    """The 16-row layout (maha6, maha3) and the 10-row one (maha3c, p2p)."""
-    for kernel, rows in (("maha6", 16), ("p2p", 10)):
+    """The 16-row layout (maha6, maha3), the 10-row one (maha3c, p2p) and
+    the 6-row one (reproj)."""
+    for kernel, rows in (("maha6", 16), ("p2p", 10), ("reproj", 6)):
         packed = torch.as_tensor(rng.normal(size=(3, rows, n)), dtype=torch.float32)
         packed[:, rows - 1] = 1.0  # the mask row: its padding must be zero too
         out = ck.lane_aligned(packed)
@@ -325,9 +402,9 @@ def test_lane_aligned_rows(rng, n):
 
 
 def test_packers_align_only_kernel_buffers(rng):
-    """pack_maha6, pack_maha3_compact and pack_p2p on the CPU keep their
-    contiguous (rows, N) buffers, bit for bit the lane_aligned views'
-    values."""
+    """pack_maha6, pack_maha3_compact, pack_reproj and pack_p2p on the CPU
+    keep their contiguous (rows, N) buffers, bit for bit the lane_aligned
+    views' values."""
     n = 1023
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
     maha = _maha_data(rng, n)
@@ -337,6 +414,7 @@ def test_packers_align_only_kernel_buffers(rng):
     )
     for packed, rows in (
         (ck.pack_maha6(maha), 16), (ck.pack_maha3_compact(maha), 10), (ck.pack_p2p(p2p), 10),
+        (ck.pack_reproj(_reproj_data(rng, n)), 6),
     ):
         assert packed.shape == (rows, n) and packed.is_contiguous()
         aligned = ck.lane_aligned(packed)
@@ -362,7 +440,7 @@ def _misaligned(kind, rows=16):
     "problems_not_rows_ld_apart", "storage_too_short",
 ])
 def test_kernel_layout_check_refuses(kind):
-    """For every one-pass kernel, at its rows (16 or 10)."""
+    """For every kernel, at its rows (16, 10 or 6)."""
     for kernel in ck.ONE_PASS:
         rows = ck._SHAPES[kernel][0]
         with pytest.raises(ValueError, match="lane_aligned"):
@@ -378,9 +456,10 @@ def test_kernel_layout_check_refuses(kind):
 
 @pytest.mark.parametrize("kernel", ["maha6", "maha3", "maha3c", "reproj", "p2p"])
 def test_every_c_export_has_its_signature(kernel):
-    """Each C function a kernel file exports is typed by the wrappers'
-    table, with as many arguments as the source declares."""
-    src = (CSRC / f"{kernel}.cu").read_text()
+    """Each C function a kernel's library exports (its file's, and
+    onepass.cuh's, which every kernel file includes) is typed by the
+    wrappers' table, with as many arguments as the source declares."""
+    src = (CSRC / f"{kernel}.cu").read_text() + (CSRC / "onepass.cuh").read_text()
     exports = {
         name: len([a for a in args.split(",") if a.strip()])
         for name, args in re.findall(r"^int (nls_\w+)\(([^)]*)\)", src, re.M)
@@ -389,15 +468,11 @@ def test_every_c_export_has_its_signature(kernel):
     for name, n_args in exports.items():
         argtypes, restype = ck._SIGNATURES[name]
         assert len(argtypes) == n_args and restype is ctypes.c_int, name
-    # a two-pass kernel's block count comes with its launch
-    for name in exports:
-        if name.endswith("_num_blocks"):
-            assert name.replace("_num_blocks", "_launch") in exports
 
 
 def test_every_signature_names_an_export():
     exported = set()
-    for src in CSRC.glob("*.cu"):
+    for src in [*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]:
         exported |= set(re.findall(r"^int (nls_\w+)\(", src.read_text(), re.M))
     assert set(ck._SIGNATURES) == exported
 
@@ -425,10 +500,3 @@ def test_workspace_per_stream_or_per_capture(monkeypatch, capturing):
     assert grown[0].numel() >= 2 * 56 and grown[1].numel() >= 2 * 2
     assert ck._WORKSPACE[("maha6", 0, 7)] is grown
 
-
-def test_two_pass_timing_entry_refuses_cpu_tensors():
-    for kernel in ck.ONE_PASS:
-        packed = torch.zeros((1, ck._SHAPES[kernel][0], 8))
-        code, params = _params(kernel, np.random.default_rng(0), 1, port.TrivialLoss())
-        with pytest.raises(ValueError, match="CUDA"):
-            ck._partials_two_pass(kernel, params, packed, code)
