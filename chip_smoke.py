@@ -23,7 +23,12 @@ beside eager calls), with the cluster finish (up to 16 tiles) against the
 ticket's on the same problem zero-padded past 16 tiles, and timed against
 an empty kernel's launch. It checks the f64
 path against the reference oracle traces, and times the kernels and the
-paths.
+paths. Last, the SE(3) pose graph in float64, which runs plain PyTorch
+ops and no port kernel: the reference's 80-pose fixture by every solver
+(dense, tridiag, banded, cg, auto) against dense and the scipy oracle,
+sphere2500 through the g2o writer and reader and solver="auto" (banded)
+against dense at 17,500 unknowns, and the 5,000-pose chain (tridiag),
+with the 2,000-pose chain by tridiag against dense.
 Every phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code.
 The line before the last is the ``kernels`` summary, the last line
@@ -1319,6 +1324,11 @@ def main() -> int:
     emit("onepass_ab", empty_kernel_ms_back_to_back=floor_ms,
          empty_kernel_ms_host_bound=floor_host_ms, one_pass_small_n_ms_back_to_back=ladder,
          designs=ab, device=name, nvidia_smi=smi)
+    # ---- the SE(3) pose graph, float64 (no port kernel on its path) --------
+    _pose_graph_reference(dev, name, smi)
+    _pose_graph_sphere2500(dev, name, smi)
+    _pose_graph_chain(dev, name, smi)
+
     kernels = []
     for kernel in KERNEL_SHAPE:
         row = time_kernel(kernel, *cases[kernel][main_case[kernel]])
@@ -1342,6 +1352,394 @@ def main() -> int:
         "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
     }), flush=True)
     return 0
+
+
+# The JAX package's solver choice on sphere2500 (select_solver with the RCM
+# bandwidth; tests/test_solver_selection.py:34 holds bandwidth < 120 and
+# tests/test_torch_pose_graph.py holds the port's choice to JAX's).
+SPHERE_SELECTION = {
+    "P": 2500, "E": 4899, "d": 7, "n_corr": 2400, "bandwidth": 51,
+    "banded_flops": 4549929300.0, "banded_panel_bytes": 50979600,
+    "predicted_banded_ms": 26.3883293, "reason": "small superblock flops",
+}
+CHAIN_POSES = 5000  # tests/test_solver_selection.py:79-89
+EXACT_CHAIN_POSES = 2000  # tests/test_pose_graph.py:181-215
+
+
+def _chain_graph(P: int):
+    """tests/test_pose_graph.py's chain: identity rotations, a seeded random
+    walk, noisy starts (pose 0 exact and constant), odometry between
+    neighbours and three long loops."""
+    from nonlinear_optimizer_for_slam_tpu_torch.core.pose import Pose
+
+    rng = np.random.default_rng(2)
+    true_pos = np.cumsum(0.2 * rng.normal(size=(P, 3)), axis=0)
+    noisy = true_pos + np.where(np.arange(P)[:, None] > 0, 0.05 * rng.normal(size=(P, 3)), 0.0)
+    poses = [Pose(np.eye(3), noisy[i]) for i in range(P)]
+    edges = [(i, i + 1, Pose(np.eye(3), true_pos[i + 1] - true_pos[i]), False)
+             for i in range(P - 1)]
+    edges += [(a, b, Pose(np.eye(3), true_pos[b] - true_pos[a]), True)
+              for a, b in [(0, P // 2), (P // 4, 3 * P // 4), (10, P - 10)]]
+    return poses, edges, true_pos
+
+
+def _no_port_kernels(phase: str) -> None:
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+
+    if any(ck.LAUNCHES.values()):
+        raise AssertionError(f"{phase}: the pose-graph path launched {ck.LAUNCHES}")
+
+
+def _pg_state(opt, ids):
+    """(positions, quaternions) of the registered poses ``ids``."""
+    pos = np.stack([opt.get_pose(i).translation for i in ids])
+    quat = np.stack([opt.get_pose(i).quaternion() for i in ids])
+    return pos, quat
+
+
+# LM iterations of the profiled pose-graph solve: enough for the kernels
+# per iteration and the idle share, few enough for the profiler's trace.
+PROFILED_LM_ITERATIONS = 5
+
+
+def _pg_timed(opt, initial, options, runs=3):
+    """Solve from ``initial`` 1 + ``runs`` times, the first a warm-up (with
+    ``runs=0`` one timed solve and no warm-up), the registry reset between
+    solves outside the clock; the wall is the median of the timed solves.
+    Then torch.profiler over a solve capped at PROFILED_LM_ITERATIONS
+    (its reset, a host loop, inside) for the device kernels per LM
+    iteration and the idle share. Returns the numbers and the last full
+    summary; the optimizer holds a solution of the capped solve."""
+    import torch
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+
+    options = options or port.Options().replace(max_iterations=500)
+
+    def reset():
+        for vid, pose in initial.items():
+            opt.set_pose(vid, pose)
+
+    walls = []
+    for _ in range(runs + 1):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary, _ = opt.solve(options)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls = walls[1:] or walls
+    short = options.replace(max_iterations=min(PROFILED_LM_ITERATIONS, options.max_iterations))
+    capped = []
+    prof = _profile(lambda: (reset(), capped.append(opt.solve(short)[0])), warm=False)
+    n_eval = _evaluations([summary])
+    wall = statistics.median(walls)
+    return dict(
+        wall_ms_median=wall, walls_ms=walls, lm_iterations=int(summary.iterations),
+        lm_evaluations=n_eval, ms_per_lm_iteration=wall / n_eval,
+        profiled_lm_evaluations=_evaluations(capped),
+        device_kernels_per_lm_iteration=prof["device_kernels"] / _evaluations(capped),
+        device_busy_ms=prof["device_busy_ms"], device_idle_share=prof["device_idle_share"],
+        profiled_wall_ms=prof["wall_ms"], top_device=prof["top_device"][:5],
+    ), summary
+
+
+def _pose_graph_reference(dev, name: str, smi: str) -> None:
+    """The reference's 80-pose fixture on the card in float64 by every
+    solver, against dense and the scipy oracle; first a check that
+    ``index_put_`` with ``accumulate=True`` sums repeated indices in one
+    order. The pose-graph path runs plain PyTorch ops (no port kernel):
+    the kernel counts stay 0."""
+    import torch
+
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers import pose_graph as pg
+    from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
+
+    from scipy.optimize import least_squares
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import relative_pose
+
+    f64 = torch.float64
+    opts500 = port.Options().replace(max_iterations=500)
+    LOOP, ODOM = pg.ConstraintType.LOOP, pg.ConstraintType.ODOMETRY
+
+    # ---- index_put_(accumulate=True) sums repeated indices in one order ----
+    srng = np.random.default_rng(SEED + 21)
+    idx = torch.as_tensor(srng.integers(0, 2500, 200_000), device=dev)
+    vals = torch.as_tensor(srng.normal(size=(200_000, 7, 7)), dtype=f64, device=dev)
+    sums = [pg._scatter_add(torch.zeros((2500, 7, 7), dtype=f64, device=dev), idx, vals)
+            for _ in range(5)]
+    if not all(torch.equal(a, sums[0]) for a in sums[1:]):
+        raise AssertionError("pose_graph: index_put_(accumulate=True) is not deterministic")
+    host = pg._scatter_add(torch.zeros((2500, 7, 7), dtype=f64), idx.cpu(), vals.cpu())
+    scatter_err = float((sums[0].cpu() - host).abs().max())
+    if scatter_err > 1e-10:
+        raise AssertionError(f"pose_graph: index_put_ on the card vs the host: {scatter_err}")
+
+    # ---- pose_graph_reference: the 80-pose fixture ---------------------------
+    ck.reset_launches()
+    true, noisy, constraints = testing.generate_pose_graph_fixture()
+
+    def build_ref(penalty=0.03, **kw):
+        opt = pg.PoseGraphOptimizer(switch_penalty=penalty, device=dev, **kw)
+        for i, p in enumerate(noisy):
+            opt.set_pose(i, p)
+        opt.set_pose_constant(0)
+        for c in constraints:
+            opt.set_constraint(c["reference_index"], c["query_index"], c["relative_pose"],
+                               LOOP if c["is_loop"] else ODOM)
+        return opt
+
+    ref = {}
+    for solver in ("dense", "tridiag", "banded", "cg", "auto", "dense_again"):
+        opt = build_ref(solver=solver.replace("_again", ""))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary, sw = opt.solve(opts500)
+        torch.cuda.synchronize()
+        pos, quat = _pg_state(opt, range(80))
+        ref[solver] = dict(summary=summary, sw=sw, pos=pos, quat=quat,
+                           wall_ms=(time.perf_counter() - t0) * 1e3,
+                           choice=opt.last_solver_choice)
+    _no_port_kernels("pose_graph_reference")
+    dense = ref["dense"]
+    if ref["auto"]["choice"] != "dense":
+        raise AssertionError(f"pose_graph_reference: auto chose {ref['auto']['choice']}")
+    agreement = {}
+    for solver, (pose_tol, switch_tol, cost_rtol) in {
+        "tridiag": (1e-9, 1e-9, 1e-10), "banded": (1e-9, 1e-9, 1e-10),
+        "cg": (5e-4, 5e-3, None), "auto": (0.0, 0.0, 0.0),
+    }.items():
+        r = ref[solver]
+        pose_err = float(max(np.abs(r["pos"] - dense["pos"]).max(),
+                             np.abs(r["quat"] - dense["quat"]).max()))
+        switch_err = float(np.abs(r["sw"] - dense["sw"]).max())
+        cost, cost_d = float(r["summary"].final_cost), float(dense["summary"].final_cost)
+        agreement[solver] = dict(pose_max_abs_err=pose_err, switch_max_abs_err=switch_err,
+                                 final_cost=cost, lm_iterations=int(r["summary"].iterations))
+        if pose_err > pose_tol or switch_err > switch_tol or (
+                cost_rtol is not None and abs(cost - cost_d) > cost_rtol * abs(cost_d)):
+            raise AssertionError(f"pose_graph_reference: {solver} vs dense: {agreement[solver]}")
+    again = ref["dense_again"]
+    if not (np.array_equal(again["pos"], dense["pos"]) and np.array_equal(again["quat"], dense["quat"])
+            and np.array_equal(again["sw"], dense["sw"])
+            and torch.equal(torch.nan_to_num(again["summary"].records.cost),
+                            torch.nan_to_num(dense["summary"].records.cost))):
+        raise AssertionError("pose_graph_reference: two dense solves differ")
+    sw = dense["sw"]
+    if not (np.all(sw[:3] >= 0.9) and abs(sw[3]) < 0.1):
+        raise AssertionError(f"pose_graph_reference: switches {sw.tolist()}")
+    # the scipy oracle on the port's own residual stack, on the host, at the
+    # reference's switch penalty (1e-9), as tests/test_pose_graph.py runs it
+    oracle, _ = build_ref(penalty=None, solver="dense").solve(opts500)
+    is_loop = np.array([1.0 if c["is_loop"] else 0.0 for c in constraints])
+    host = lambda a, dt=f64: torch.as_tensor(np.asarray(a), dtype=dt)
+    edges = relative_pose.PoseGraphEdges(
+        host([c["reference_index"] for c in constraints], torch.long),
+        host([c["query_index"] for c in constraints], torch.long),
+        host(np.stack([c["relative_pose"].translation for c in constraints])),
+        host(np.stack([c["relative_pose"].quaternion() for c in constraints])),
+        host(is_loop), torch.ones(len(constraints), dtype=f64),
+    )
+    loop_slot = np.cumsum(is_loop.astype(int)) - 1
+    x0 = np.concatenate([np.stack([p.translation for p in noisy]).ravel(),
+                         np.stack([p.quaternion() for p in noisy]).ravel(), np.ones(4)])
+    free = np.ones_like(x0, dtype=bool)
+    free[:3] = False
+    free[240:244] = False
+
+    def residual(x_free):
+        x = x0.copy()
+        x[free] = x_free
+        return relative_pose.edge_residuals(
+            host(x[:240].reshape(80, 3)), host(x[240:560].reshape(80, 4)),
+            host(x[560:][loop_slot]), edges,
+        ).numpy().ravel()
+
+    t0 = time.perf_counter()
+    scipy_cost = float(np.sum(least_squares(residual, x0[free], method="lm", xtol=1e-12,
+                                            ftol=1e-12).fun ** 2))
+    scipy_s = time.perf_counter() - t0
+    ours = float(oracle.final_cost)
+    if ours > max(1.05 * scipy_cost, 1e-8):
+        raise AssertionError(f"pose_graph_reference: cost {ours} vs scipy {scipy_cost}")
+    emit("pose_graph_reference", poses=80, edges=len(constraints), loops=4, dtype="float64",
+         switch_penalty=0.03, max_iterations=500, auto_choice=ref["auto"]["choice"],
+         lm_iterations={k: int(v["summary"].iterations) for k, v in ref.items()},
+         final_cost={k: float(v["summary"].final_cost) for k, v in ref.items()},
+         wall_ms_one_solve={k: v["wall_ms"] for k, v in ref.items()},
+         against_dense=agreement, switches=sw.tolist(), oracle_switch_penalty=1e-9,
+         oracle_final_cost=ours, scipy_cost=scipy_cost,
+         scipy_s=scipy_s, dense_twice_bitwise=True,
+         index_put_accumulate_repeat_bitwise=True, index_put_card_vs_host_max_abs_err=scatter_err,
+         port_kernel_launches=0, device=name, nvidia_smi=smi)
+
+
+def _pose_graph_sphere2500(dev, name: str, smi: str) -> None:
+    """sphere2500 through the port's g2o writer and reader and
+    solver="auto" (banded), against dense at 17,500 unknowns, then CG."""
+    import torch
+
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers import pose_graph as pg
+    from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.io import g2o
+
+    # ---- pose_graph_sphere2500: g2o round trip, auto, banded vs dense ------
+    ck.reset_launches()
+    graph, truth = testing.generate_sphere_g2o()
+    path = os.path.join(REPO, "build", "sphere2500.g2o")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    g2o.write_g2o(path, graph)
+    opt = g2o.load_pose_graph(path, solver="auto", device=dev)
+    ids = opt.pose_indices()
+    initial = {vid: opt.get_pose(vid) for vid in ids}
+    rmse = lambda pos: float(np.sqrt(np.mean(np.sum((pos - truth) ** 2, axis=1))))
+    rmse_before = rmse(_pg_state(opt, ids)[0])
+    summary, _ = opt.solve()
+    if opt.last_solver_choice != "banded" or opt.last_selection != SPHERE_SELECTION:
+        raise AssertionError(f"pose_graph_sphere2500: auto chose {opt.last_solver_choice} "
+                             f"{opt.last_selection}")
+    banded_pos, banded_quat = _pg_state(opt, ids)
+    banded_cost = float(summary.final_cost)
+    runs = {"banded": dict(final_cost=banded_cost, rmse_after=rmse(banded_pos),
+                           **_pg_timed(opt, initial, None)[0])}
+    # dense: 17,500 unknowns, one timed solve; CG (chain preconditioner,
+    # 250 CG iterations a step, about a second an LM iteration here)
+    # capped at 10 LM iterations: its inexact steps need not meet the
+    # reference's absolute tolerances
+    summaries = {"banded": summary}
+    for solver, cap in (("dense", 500), ("cg", 10)):
+        other = g2o.load_pose_graph(path, solver=solver, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summaries[solver], _ = other.solve(port.Options().replace(max_iterations=cap))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        pos, quat = _pg_state(other, ids)
+        n_eval = _evaluations([summaries[solver]])
+        runs[solver] = dict(
+            final_cost=float(summaries[solver].final_cost), rmse_after=rmse(pos),
+            max_iterations=cap, lm_iterations=int(summaries[solver].iterations),
+            wall_ms=wall, ms_per_lm_iteration=wall / n_eval, peak_memory_gb=peak_gb,
+            position_max_abs_err_vs_banded=float(np.abs(pos - banded_pos).max()),
+            quaternion_max_abs_err_vs_banded=float(np.abs(quat - banded_quat).max()),
+        )
+        # the profile: CG's 20,000-odd kernels an iteration cap it at 2
+        for vid, pose in initial.items():
+            other.set_pose(vid, pose)
+        capped = []
+        prof = _profile(lambda: capped.append(other.solve(port.Options().replace(
+            max_iterations=PROFILED_LM_ITERATIONS if solver == "dense" else 2))[0]), warm=False)
+        runs[solver].update(
+            profiled_lm_evaluations=_evaluations(capped),
+            device_kernels_per_lm_iteration=prof["device_kernels"] / _evaluations(capped),
+            device_idle_share=prof["device_idle_share"], top_device=prof["top_device"][:5])
+    # the two exact solvers: the final cost within rtol 1e-10 and the
+    # poses within 2e-6. Each solve stops on a step shorter than 1e-6 (the
+    # LM parameter tolerance) at the end of a slow tail (199 and 204
+    # iterations on the H100), so the two stops agree to about twice that
+    # in the worst position; the cost records' spread is reported
+    rec_b = summaries["banded"].records.cost.cpu().numpy()
+    rec_d = summaries["dense"].records.cost.cpu().numpy()
+    n_common = min(_evaluations([summaries["banded"]]), _evaluations([summaries["dense"]]))
+    record_err = np.abs(rec_b[:n_common] - rec_d[:n_common]) / rec_d[:n_common]
+    d = runs["dense"]
+    d["cost_record_rel_err_max"] = float(record_err.max())
+    d["cost_record_first_above_1e-10"] = (
+        int(np.argmax(record_err > 1e-10)) if (record_err > 1e-10).any() else None)
+    if (abs(d["final_cost"] - banded_cost) > 1e-10 * abs(d["final_cost"])
+            or max(d["position_max_abs_err_vs_banded"], d["quaternion_max_abs_err_vs_banded"]) > 2e-6):
+        raise AssertionError(f"pose_graph_sphere2500: banded {banded_cost} vs dense: {d}")
+    if not (runs["banded"]["rmse_after"] < rmse_before and runs["cg"]["rmse_after"] < rmse_before
+            and np.isfinite(runs["cg"]["final_cost"])):
+        raise AssertionError(f"pose_graph_sphere2500: {runs}")
+    _no_port_kernels("pose_graph_sphere2500")
+    emit("pose_graph_sphere2500", poses=len(ids), edges=len(graph.edges), dtype="float64",
+         auto_choice=opt.last_solver_choice, selection=opt.last_selection,
+         dense_unknowns=7 * len(ids), rmse_before=rmse_before, solvers=runs,
+         port_kernel_launches=0, device=name, nvidia_smi=smi)
+
+
+def _pose_graph_chain(dev, name: str, smi: str) -> None:
+    """The 5,000-pose chain by solver="auto" (tridiag), timed; then the
+    2,000-pose chain by tridiag against dense."""
+    import torch
+
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers import pose_graph as pg
+    from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+
+    LOOP, ODOM = pg.ConstraintType.LOOP, pg.ConstraintType.ODOMETRY
+
+    # ---- pose_graph_chain: 5,000 poses, 3 long loops; tridiag vs dense -----
+    ck.reset_launches()
+
+    def build_chain(P, **kw):
+        poses, edges, true_pos = _chain_graph(P)
+        opt = pg.PoseGraphOptimizer(switch_penalty=0.03, device=dev, **kw)
+        for i, p in enumerate(poses):
+            opt.set_pose(i, p)
+        opt.set_pose_constant(0)
+        for a, b, rel, loop in edges:
+            opt.set_constraint(a, b, rel, LOOP if loop else ODOM)
+        return opt, {i: p for i, p in enumerate(poses)}, true_pos
+
+    opt, initial, true_pos = build_chain(CHAIN_POSES, solver="auto")
+    rmse = lambda pos: float(np.sqrt(np.mean(np.sum((pos - true_pos) ** 2, axis=1))))
+    rmse_before = rmse(_pg_state(opt, range(CHAIN_POSES))[0])
+    summary, _ = opt.solve()
+    if opt.last_solver_choice != "tridiag":
+        raise AssertionError(f"pose_graph_chain: auto chose {opt.last_solver_choice}")
+    chain = dict(final_cost=float(summary.final_cost), rmse_before=rmse_before,
+                 rmse_after=rmse(_pg_state(opt, range(CHAIN_POSES))[0]),
+                 **_pg_timed(opt, initial, None)[0])
+    # exactness: the 2,000-pose chain (14,003 unknowns), 30 iterations.
+    # Its measurements are exact and its rotations the identity, so its
+    # optimum costs 0 and every quaternion's w direction is held by the
+    # 1e-8 floor alone: the two factorizations part by ~1e-9 in the poses
+    # from the first step on, which moves the small costs of later
+    # iterations by ~1e-5 relative (a 600-pose run on the host). Held:
+    # counts equal, poses within 1e-8, the final cost within 1e-10
+    # relative plus 1e-12 at the zero floor; the records' spread reported
+    exact = {}
+    for solver in ("tridiag", "dense"):
+        o, initial, true_pos = build_chain(EXACT_CHAIN_POSES, solver=solver)
+        s_o, _ = o.solve(port.Options().replace(max_iterations=30))
+        exact[solver] = (s_o, _pg_state(o, range(EXACT_CHAIN_POSES)))
+    (s_t, st_t), (s_d, st_d) = exact["tridiag"], exact["dense"]
+    # and tests/test_block_tridiag.py's own bounds for this chain
+    start = np.stack([initial[i].translation for i in range(EXACT_CHAIN_POSES)])
+    err_before = float(np.linalg.norm(start - true_pos, axis=1).max())
+    err_after = float(np.linalg.norm(st_t[0] - true_pos, axis=1).max())
+    c_t, c_d = float(s_t.final_cost), float(s_d.final_cost)
+    rec_t, rec_d = s_t.records.cost.cpu().numpy(), s_d.records.cost.cpu().numpy()
+    above = np.nan_to_num(rec_d) > 1e-6
+    record_err = float(np.max(np.abs(rec_t[above] - rec_d[above]) / rec_d[above]))
+    exact_err = float(max(np.abs(a - b).max() for a, b in zip(st_t, st_d)))
+    if (int(s_t.iterations) != int(s_d.iterations) or c_t >= 1e-8
+            or err_after >= 0.02 * err_before
+            or abs(c_t - c_d) > 1e-10 * abs(c_d) + 1e-12 or exact_err > 1e-8):
+        raise AssertionError(f"pose_graph_chain: tridiag {c_t} vs dense {c_d}, cost records "
+                             f"{record_err}, poses {exact_err}")
+    _no_port_kernels("pose_graph_chain")
+    emit("pose_graph_chain", poses=CHAIN_POSES, edges=CHAIN_POSES + 2, loops=3, dtype="float64",
+         auto_choice=opt.last_solver_choice, selection=opt.last_selection, tridiag=chain,
+         exact_check=dict(poses=EXACT_CHAIN_POSES, unknowns=7 * EXACT_CHAIN_POSES + 3,
+                          max_iterations=30, final_cost_tridiag=c_t, final_cost_dense=c_d,
+                          lm_iterations_tridiag=int(s_t.iterations),
+                          lm_iterations_dense=int(s_d.iterations),
+                          cost_records_checked=int(above.sum()),
+                          cost_record_max_rel_err=record_err, pose_max_abs_err=exact_err,
+                          max_error_before=err_before, max_error_after=err_after),
+         port_kernel_launches=0, device=name, nvidia_smi=smi)
 
 
 def _evaluations(summaries) -> int:
@@ -1414,14 +1812,16 @@ def _wall_ms(fn, runs: int) -> float:
     return statistics.median(_walls_ms(fn, runs))
 
 
-def _profile(fn) -> dict:
+def _profile(fn, warm: bool = True) -> dict:
     """Where the device time of one call of ``fn`` goes, by kernel name
-    (torch.profiler, CUPTI): device busy, idle share, top kernels."""
+    (torch.profiler, CUPTI): device busy, idle share, top kernels. A
+    warm-up call comes first unless ``warm`` is False."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -16,10 +16,12 @@ autodiff oracle (``solvers.autodiff``), the streaming map builder
 (``NdtMapAccumulator``) and loop closure (``LoopClosureDetector``). Their
 factor evaluation runs in the hand-written CUDA kernels ``csrc/maha6.cu``,
 ``csrc/maha3.cu``, ``csrc/maha3c.cu``, ``csrc/reproj.cu`` and
-``csrc/p2p.cu``.
+``csrc/p2p.cu``. The SE(3) pose-graph optimizer (``PoseGraphOptimizer``:
+dense, tridiag, banded, CG and ``solver="auto"``) and g2o file IO
+(``io.g2o``) run in plain PyTorch ops, as the JAX package's run in XLA.
 """
 
-from . import core, interop, ops, pipelines, solvers, utils
+from . import core, interop, io, ops, pipelines, solvers, utils
 from .core import (
     CauchyLoss,
     DCSLoss,
@@ -51,9 +53,11 @@ from .pipelines import (
     register_point_to_plane,
 )
 from .solvers import (
+    ConstraintType,
     MahalanobisDistanceMinimizer,
     MahalanobisDistanceMinimizer3DOF,
     PointToPlaneMinimizer,
+    PoseGraphOptimizer,
     ReprojectionErrorMinimizer,
     Summary,
     finalize_solve_batch,

@@ -1,6 +1,7 @@
 """Quaternion math for SE(3) pose manipulation, and the SE(2) rotation of
 the planar solvers (PyTorch port of the part of the JAX package's
-``core/lie.py`` that NDT registration uses).
+``core/lie.py`` that registration and the pose graph use), and numpy
+twins of the quaternion product for host-side algebra.
 
 All functions are dtype-polymorphic, batched over leading dims and
 branch-free (small-angle branches become ``torch.where`` masks).
@@ -16,6 +17,7 @@ small-angle branch at theta < 1e-6
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -94,6 +96,37 @@ def quat_to_rotmat(q: Tensor) -> Tensor:
         ],
         dim=-2,
     )
+
+
+def quat_rotate(q: Tensor, v: Tensor) -> Tensor:
+    """Rotate vector(s) v (..., 3) by unit quaternion(s) q (..., 4)."""
+    return (quat_to_rotmat(q) @ v[..., None])[..., 0]
+
+
+# Numpy twins for host-side quaternion algebra (wxyz), as in the JAX
+# package's ``ops/relative_pose.py``.
+
+
+def np_quat_left_matrix(a: np.ndarray) -> np.ndarray:
+    """L(a) with L(a) b = a (x) b, batched over leading dims."""
+    w, x, y, z = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    return np.stack(
+        [
+            np.stack([w, -x, -y, -z], -1),
+            np.stack([x, w, -z, y], -1),
+            np.stack([y, z, w, -x], -1),
+            np.stack([z, -y, x, w], -1),
+        ],
+        -2,
+    )
+
+
+def np_quat_conjugate(q: np.ndarray) -> np.ndarray:
+    return q * np.array([1.0, -1.0, -1.0, -1.0])
+
+
+def np_quat_multiply(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.einsum("...ij,...j->...i", np_quat_left_matrix(a), b)
 
 
 # SE(2) helpers for the 3-DoF planar solvers

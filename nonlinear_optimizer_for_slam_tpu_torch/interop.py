@@ -24,7 +24,15 @@ a given device:
   ``matched_pixels`` and ``mask``, to ``device`` in ``dtype``;
 - ``intrinsics``: the ``CameraIntrinsics`` fields ``fx``, ``fy``, ``cx``,
   ``cy``, ``width`` and ``height``, rebuilt with ``CameraIntrinsics.create``
-  (host floats; a minimizer casts them to its dtype).
+  (host floats; a minimizer casts them to its dtype);
+- ``pose_graph_edges``: the seven ``PoseGraphEdges`` fields
+  (``reference_indices``, ``query_indices``, ``relative_translations``,
+  ``relative_quaternions``, ``is_loop``, ``mask``, and ``sqrt_info``: None,
+  (E, 6) diagonal rows or (E, 6, 6) matrices), to ``device``: the indices
+  as int64, the rest in ``dtype``;
+- ``pose_graph_state``: a pose-graph solve's state, ``positions`` (P, 3),
+  ``quaternions`` (P, 4) and ``switches`` (L,), to ``device`` in ``dtype``
+  as a :class:`PoseGraphState`.
 
 :func:`to_reference` is the inverse: the same dicts back, as numpy (the
 intrinsics as floats and ints).
@@ -49,6 +57,7 @@ from .core.options import (
 )
 from .core.pose import Pose
 from .ops.mahalanobis import MahalanobisData
+from .ops.relative_pose import PoseGraphEdges
 from .ops.reprojection import CameraIntrinsics, ReprojectionData
 from .pipelines.fused_registration import RegistrarMap
 from .pipelines.ndt import NdtMap
@@ -67,6 +76,15 @@ LOSSES = {
 }
 
 
+class PoseGraphState(NamedTuple):
+    """A pose graph's solve state: positions (P, 3), quaternions (P, 4)
+    (w, x, y, z) and loop switches (L,)."""
+
+    positions: torch.Tensor
+    quaternions: torch.Tensor
+    switches: torch.Tensor
+
+
 class PortState(NamedTuple):
     """The port's objects built by :func:`from_reference`; a field is None
     where its input was not given."""
@@ -79,6 +97,8 @@ class PortState(NamedTuple):
     registrar_map: Optional[RegistrarMap] = None
     reprojection_data: Optional[ReprojectionData] = None
     intrinsics: Optional[CameraIntrinsics] = None
+    pose_graph_edges: Optional[PoseGraphEdges] = None
+    pose_graph_state: Optional[PoseGraphState] = None
 
 
 def _enum(cls, value):
@@ -118,12 +138,15 @@ def from_reference(
     registrar_map: Optional[Mapping[str, Optional[np.ndarray]]] = None,
     reprojection_data: Optional[Mapping[str, np.ndarray]] = None,
     intrinsics: Optional[Mapping[str, Any]] = None,
+    pose_graph_edges: Optional[Mapping[str, Optional[np.ndarray]]] = None,
+    pose_graph_state: Optional[Mapping[str, np.ndarray]] = None,
     device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> PortState:
     """The port's objects from numpy copies of the JAX package's (see the
-    module docstring). ``data``, ``registrar_map`` and ``reprojection_data``
-    go to ``device`` in ``dtype``; raises if ``device`` names CUDA and no GPU
+    module docstring). ``data``, ``registrar_map``, ``reprojection_data``,
+    ``pose_graph_edges`` and ``pose_graph_state`` go to ``device`` in
+    ``dtype`` (edge indices as int64); raises if ``device`` names CUDA and no GPU
     is present."""
     device = resolve_device(device)
     port_map = None
@@ -172,9 +195,26 @@ def from_reference(
             width=int(intrinsics.get("width", 0)),
             height=int(intrinsics.get("height", 0)),
         )
+    port_edges = None
+    if pose_graph_edges is not None:
+        index = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=device)
+        port_edges = PoseGraphEdges(
+            index(pose_graph_edges["reference_indices"]),
+            index(pose_graph_edges["query_indices"]),
+            *(to_device(pose_graph_edges[f]) for f in PoseGraphEdges._fields[2:6]),
+            sqrt_info=(
+                None if pose_graph_edges.get("sqrt_info") is None
+                else to_device(pose_graph_edges["sqrt_info"])
+            ),
+        )
+    port_graph_state = None
+    if pose_graph_state is not None:
+        port_graph_state = PoseGraphState(
+            *(to_device(pose_graph_state[f]) for f in PoseGraphState._fields)
+        )
     return PortState(
         port_map, port_data, port_pose, port_loss, port_options, port_registrar_map,
-        port_reprojection, port_intrinsics,
+        port_reprojection, port_intrinsics, port_edges, port_graph_state,
     )
 
 
@@ -219,5 +259,14 @@ def to_reference(state: PortState) -> dict:
         out["intrinsics"] = {
             "fx": float(intr.fx), "fy": float(intr.fy), "cx": float(intr.cx),
             "cy": float(intr.cy), "width": int(intr.width), "height": int(intr.height),
+        }
+    if state.pose_graph_edges is not None:
+        out["pose_graph_edges"] = {
+            f: None if a is None else a.cpu().numpy()
+            for f, a in zip(PoseGraphEdges._fields, state.pose_graph_edges)
+        }
+    if state.pose_graph_state is not None:
+        out["pose_graph_state"] = {
+            f: a.cpu().numpy() for f, a in zip(PoseGraphState._fields, state.pose_graph_state)
         }
     return out

@@ -29,34 +29,8 @@ from ..core.losses import ExponentialLoss
 from ..core.options import Options
 from ..core.pose import Pose, np_rotmat_to_quat
 from ..solvers.minimizers import MahalanobisDistanceMinimizer
+from ..solvers.pose_graph import edge_information_to_world
 from . import matching, ndt, registration
-
-
-def edge_information_to_world(information, reference_rotation) -> np.ndarray:
-    """Conjugate a measurement-frame edge information matrix into the
-    world-frame translation-residual convention of the pose graph (a numpy
-    copy of the JAX package's ``solvers/pose_graph.
-    edge_information_to_world``).
-
-    A registration against a reference keyframe measures T_{ref<-query};
-    its Gauss-Newton information lives in that measurement's right tangent,
-    whose translation perturbations are vectors in the reference-keyframe
-    frame. The pose-graph edge residual ``r_t = (p_q - p_r) - R_ref t_rel``
-    expresses the same error in the world frame, so the frame-consistent
-    edge information is
-
-        Omega_world = blkdiag(R_ref, I) Omega blkdiag(R_ref, I)^T.
-
-    The rotation block is already frame-consistent. ``reference_rotation``
-    is the reference pose's current world-rotation estimate.
-    """
-    R = np.asarray(reference_rotation, np.float64)
-    if R.shape != (3, 3):
-        raise ValueError(f"reference_rotation must be (3, 3); got {R.shape}")
-    B = np.eye(6)
-    B[:3, :3] = R
-    omega = np.asarray(information, np.float64)
-    return B @ omega @ B.T
 
 
 @dataclasses.dataclass

@@ -1,4 +1,4 @@
-from . import autodiff, batched, linear, lm, manifolds, minimizers
+from . import autodiff, batched, block_tridiag, linear, lm, manifolds, minimizers, pose_graph
 from .batched import (
     finalize_solve_batch,
     solve_mahalanobis_batch,
@@ -15,14 +15,17 @@ from .minimizers import (
     PointToPlaneMinimizer,
     ReprojectionErrorMinimizer,
 )
+from .pose_graph import ConstraintType, PoseGraphOptimizer, select_solver
 
 __all__ = [
     "autodiff",
     "batched",
+    "block_tridiag",
     "linear",
     "lm",
     "manifolds",
     "minimizers",
+    "pose_graph",
     "finalize_solve_batch",
     "solve_mahalanobis_batch",
     "solve_mahalanobis_batch_async",
@@ -36,4 +39,7 @@ __all__ = [
     "PointToPlaneMinimizer",
     "ReprojectionErrorMinimizer",
     "Summary",
+    "ConstraintType",
+    "PoseGraphOptimizer",
+    "select_solver",
 ]

@@ -18,6 +18,11 @@ each instance the bits of its serial solve, as ``jax.vmap`` does for the
 JAX package's batched solvers. That dispatch is torch's choice, not a
 documented contract: ``chip_smoke.py``'s ``cholesky_probe`` holds it, and
 the rest of the solve, on every run and names this function when it fails.
+The rule holds for lone matrices of at most ``_PAIR_MAX`` rows only: the
+batched solvers' systems are 3x3 to 6x6, while a large lone system (a
+pose graph's dense 7P+L normal matrix, 564 to 17,500 rows) has no batched
+twin whose bits it must match, and pairing it would double its memory and
+its factorization work.
 """
 
 from __future__ import annotations
@@ -62,11 +67,15 @@ def _cg(hessian: Tensor, rhs: Tensor, tol: float = 1e-5) -> Tensor:
     return x
 
 
+# Largest lone matrix factored as a batch of two (see the module docstring).
+_PAIR_MAX = 64
+
+
 def _cholesky_ex(hessian: Tensor):
-    """``torch.linalg.cholesky_ex`` with a lone matrix factored as a batch
-    of two (see the module docstring)."""
+    """``torch.linalg.cholesky_ex`` with a small lone matrix factored as a
+    batch of two (see the module docstring)."""
     n = hessian.shape[-1]
-    if hessian.numel() != n * n:
+    if hessian.numel() != n * n or n > _PAIR_MAX:
         return torch.linalg.cholesky_ex(hessian)
     pair = hessian.reshape(1, n, n).expand(2, n, n)
     factor, info = torch.linalg.cholesky_ex(pair)
@@ -102,6 +111,10 @@ def solve_normal_equations(
 def damp_hessian(hessian: Tensor, lam: Tensor) -> Tensor:
     """Multiplicative diagonal damping H[k,k] *= (1 + lambda)
     (reference: mahalanobis_distance_minimizer_analytic.cc:126); ``lam``
-    has the leading shape of ``hessian``."""
-    eye = torch.eye(hessian.shape[-1], dtype=hessian.dtype, device=hessian.device)
-    return hessian + lam[..., None, None] * hessian * eye
+    has the leading shape of ``hessian``. Only the diagonal is touched, so a
+    large system needs no n x n identity or product; each damped entry is
+    h + lambda h, the bits of ``H + lambda H * I``."""
+    damped = hessian.clone()
+    diagonal = damped.diagonal(dim1=-2, dim2=-1)
+    diagonal.add_(lam[..., None] * diagonal)
+    return damped

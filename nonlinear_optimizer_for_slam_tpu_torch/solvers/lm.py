@@ -72,62 +72,100 @@ class Summary(NamedTuple):
     best_cost: Optional[Tensor] = None
 
 
-def instance(tree, b: int):
-    """Instance ``b`` of a batched NamedTuple of tensors: params, or a
-    :class:`Summary` with its records (an absent field stays None)."""
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of a tree of tuples (NamedTuples included);
+    None stays None."""
     if tree is None:
         return None
     if isinstance(tree, tuple):
-        return type(tree)(*(instance(x, b) for x in tree))
-    return tree[b]
+        items = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
+    return [tree]
+
+
+def instance(tree, b: int):
+    """Instance ``b`` of a batched tree of tensors: params, or a
+    :class:`Summary` with its records (an absent field stays None)."""
+    return tree_map(lambda x: x[b], tree)
 
 
 def _batch_of_one(tree):
-    return type(tree)(*(x[None] for x in tree))
+    return tree_map(lambda x: x[None], tree)
 
 
 def solve(
-    eval_quadratic: Callable[[NamedTuple], Tuple[Tensor, Tensor, Tensor]],
-    retract: Callable[[NamedTuple, Tensor], NamedTuple],
-    params0: NamedTuple,
+    eval_quadratic: Callable,
+    retract: Callable,
+    params0,
     options: Options,
+    solve_linear: Optional[Callable] = None,
 ) -> Tuple[NamedTuple, Summary]:
-    """Run the solver on one problem. ``params0`` is a NamedTuple of
-    tensors (for example ``SE3Params``); ``eval_quadratic(params) -> (H, g,
-    cost)`` and ``retract(params, delta) -> params`` applies a local step on
-    the parameter manifold. This is :func:`solve_batch` at B = 1, so a
-    problem solved alone and the same problem in a batch follow one
-    policy."""
+    """Run the solver on one problem. ``params0`` is a tuple or NamedTuple
+    of tensors (for example ``SE3Params``); ``eval_quadratic(params) -> (H,
+    g, cost)`` and ``retract(params, delta) -> params`` applies a local step
+    on the parameter manifold. This is :func:`solve_batch` at B = 1, so a
+    problem solved alone and the same problem in a batch follow one policy.
+
+    ``solve_linear(H, g, lam) -> delta`` replaces the damped normal
+    equations, as in the JAX package's ``lm.solve``: ``H`` is then whatever
+    ``eval_quadratic`` returned first (any tuple of operator parts, such as
+    a pose graph's per-edge Jacobian blocks), and ``g`` and ``delta`` may
+    be tuples of tensors; step and gradient norms run over all of them."""
+    linear = None
+    if solve_linear is not None:
+        linear = lambda H, g, lam: _batch_of_one(
+            solve_linear(instance(H, 0), instance(g, 0), lam[0])
+        )
     params, summary = solve_batch(
-        lambda p: tuple(x[None] for x in eval_quadratic(instance(p, 0))),
-        lambda p, delta: _batch_of_one(retract(instance(p, 0), delta[0])),
+        lambda p: _batch_of_one(eval_quadratic(instance(p, 0))),
+        lambda p, delta: _batch_of_one(retract(instance(p, 0), instance(delta, 0))),
         _batch_of_one(params0),
         options,
+        solve_linear=linear,
     )
     return instance(params, 0), instance(summary, 0)
 
 
+def _lane_norm(tree, B: int) -> Tensor:
+    """(B,) L2 norm of each instance over every tensor of a tree."""
+    leaves = tree_leaves(tree)
+    return torch.sqrt(sum(torch.sum((x * x).reshape(B, -1), dim=1) for x in leaves))
+
+
 def solve_batch(
-    eval_quadratic: Callable[[NamedTuple], Tuple[Tensor, Tensor, Tensor]],
-    retract: Callable[[NamedTuple, Tensor], NamedTuple],
-    params0: NamedTuple,
+    eval_quadratic: Callable,
+    retract: Callable,
+    params0,
     options: Options,
+    solve_linear: Optional[Callable] = None,
 ) -> Tuple[NamedTuple, Summary]:
     """The LM policy above for B independent problems at once.
 
-    ``params0`` is a NamedTuple of (B, ...) tensors; ``eval_quadratic``
-    returns (H (B, P, P), g (B, P), cost (B,)) for all B, one evaluation
-    per iteration for the whole batch. Each instance keeps its own lambda,
-    previous cost, plateau state and done flag; once it is done its
-    params, lambda, costs, records and iteration count freeze, while the
-    loop runs until every instance is done (as a vmapped while_loop masks
-    finished lanes). The host reads one boolean per iteration, ``all
-    done``. Every field of the returned Summary has a leading B, the
-    records (B, max_iterations)."""
+    ``params0`` is a tuple or NamedTuple of (B, ...) tensors;
+    ``eval_quadratic`` returns (H (B, P, P), g (B, P), cost (B,)) for all
+    B, one evaluation per iteration for the whole batch. Each instance
+    keeps its own lambda, previous cost, plateau state and done flag; once
+    it is done its params, lambda, costs, records and iteration count
+    freeze, while the loop runs until every instance is done (as a vmapped
+    while_loop masks finished lanes). The host reads one boolean per
+    iteration, ``all done``. Every field of the returned Summary has a
+    leading B, the records (B, max_iterations).
+
+    ``solve_linear(H, g, lam (B,)) -> delta`` replaces the damped normal
+    equations (see :func:`solve`); H, g and delta are then trees of (B,
+    ...) tensors."""
     oh = options.optimization_handle
     ch = options.convergence_handle
     max_it = options.max_iterations
-    first = params0[0]
+    first = tree_leaves(params0)[0]
     B, dtype, device = first.shape[0], first.dtype, first.device
     full = lambda v: torch.full((B,), v, dtype=dtype, device=device)
     big = torch.finfo(dtype).max
@@ -153,14 +191,16 @@ def solve_batch(
         return mask.reshape(mask.shape + (1,) * (like.dim() - 1))
 
     def select(mask, a, b):
-        return type(a)(*(torch.where(lanes(mask, x), x, y) for x, y in zip(a, b)))
+        return tree_map(lambda x, y: torch.where(lanes(mask, x), x, y), a, b)
 
     for iteration in range(max_it):
         active = ~done
         hessian, gradient, cost = eval_quadratic(params)
 
         if options.minimizer_type == MinimizerType.GRADIENT_DESCENT:
-            delta = -oh.gradient_descent_step * gradient
+            delta = tree_map(lambda g: -oh.gradient_descent_step * g, gradient)
+        elif solve_linear is not None:
+            delta = solve_linear(hessian, gradient, lam)
         else:
             damped = damp_hessian(hessian, lam)
             delta = solve_normal_equations(
@@ -168,13 +208,15 @@ def solve_batch(
             )
         # Degenerate-system guard: a singular damped H yields a non-finite
         # step; take a zero step instead, so the instance converges in place.
-        finite = torch.all(torch.isfinite(delta), dim=-1, keepdim=True)
-        delta = torch.where(finite, delta, torch.zeros_like(delta))
+        finite = torch.ones(B, dtype=torch.bool, device=device)
+        for leaf in tree_leaves(delta):
+            finite = finite & torch.all(torch.isfinite(leaf.reshape(B, -1)), dim=1)
+        delta = tree_map(lambda d: torch.where(lanes(finite, d), d, torch.zeros_like(d)), delta)
+        step_norm = _lane_norm(delta, B)
+        grad_norm = _lane_norm(gradient, B)
 
         new_params = retract(params, delta)
 
-        step_norm = torch.sqrt(torch.sum(delta * delta, dim=-1))
-        grad_norm = torch.sqrt(torch.sum(gradient * gradient, dim=-1))
         ref_converged = (step_norm < ch.parameter_tolerance) | (
             grad_norm < ch.gradient_tolerance
         )

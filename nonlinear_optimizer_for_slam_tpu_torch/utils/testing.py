@@ -1,5 +1,5 @@
 """Deterministic synthetic fixtures mirroring the reference test worlds (a
-numpy copy of the NDT and reprojection parts of the JAX package's
+numpy copy of the NDT, reprojection and pose-graph parts of the JAX package's
 ``utils/testing.py``), the reference oracle traces, and a numpy emulation
 of the one-pass kernels' order of summation (``csrc/onepass.cuh``).
 
@@ -10,7 +10,7 @@ determines how many grid samples are generated).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -300,3 +300,146 @@ def onepass_emulate(terms: np.ndarray) -> np.ndarray:
         chain = chain + chain[:, lanes ^ off]
         off //= 2
     return chain[:, 0]
+
+
+def generate_pose_graph_fixture() -> Tuple[List[Pose], List[Pose], list]:
+    """80-pose rectangle trajectory with odometry + 4 loop closures, the
+    last loop a deliberate identity-outlier
+    (reference: pose-graph tests/simple_optimization_test.cc:19-122).
+
+    Returns (true_poses, noisy_poses, constraints) where each constraint is
+    a dict {reference_index, query_index, relative_pose, is_loop}."""
+    poses = [Pose.identity() for _ in range(80)]
+    step = 0.2
+    x = y = z = 0.0
+    for i in range(20):
+        poses[i].translation = np.array([x, y, z])
+        x += step
+        z += step
+    for i in range(20, 40):
+        y += step
+        z += step
+        poses[i].translation = np.array([x, y, z])
+    for i in range(40, 60):
+        x -= step
+        z -= step
+        poses[i].translation = np.array([x, y, z])
+    for i in range(60, 80):
+        y -= step
+        z -= step
+        poses[i].translation = np.array([x, y, z])
+
+    # Deterministic index-parity noise (reference :59-70).
+    noise = 0.08
+    noisy = [poses[0].copy()]
+    for i in range(1, 80):
+        p = poses[i].copy()
+        k = i % 3
+        p.translation = p.translation.copy()
+        p.translation[k] += (1 if i % 2 else -1) * noise
+        noisy.append(p)
+
+    odometry_pairs = [(i, i + 1) for i in range(79)]
+    loop_pairs = [(18, 21), (38, 42), (57, 61), (77, 2)]
+
+    constraints = []
+    for i0, i1 in odometry_pairs:
+        rel = poses[i0].inverse() * poses[i1]
+        constraints.append(
+            dict(reference_index=i0, query_index=i1, relative_pose=rel, is_loop=False)
+        )
+    for i0, i1 in loop_pairs:
+        rel = poses[i0].inverse() * poses[i1]
+        constraints.append(
+            dict(reference_index=i0, query_index=i1, relative_pose=rel, is_loop=True)
+        )
+    constraints[-1]["relative_pose"] = Pose.identity()  # the outlier (:121-122)
+
+    return poses, noisy, constraints
+
+
+def generate_sphere_g2o(
+    n_rings: int = 25,
+    per_ring: int = 100,
+    radius: float = 50.0,
+    s_t: float = 0.02,
+    s_r: float = 0.005,
+    seed: int = 11,
+):
+    """Sphere-world pose graph in g2o form (the classic ``sphere2500``
+    benchmark construction: a spiral of poses over a sphere, odometry
+    along the spiral, loop closures to the pose one ring below, vertex
+    initialization by dead-reckoning the NOISY odometry so the initial
+    guess carries the characteristic accumulated drift).
+
+    Defaults produce 2,500 vertices and 4,899 edges — sphere2500 scale.
+    Returns (G2oGraph, ground_truth_positions (N, 3) ndarray)."""
+    from ..io.g2o import G2oEdge, G2oGraph
+
+    rng = np.random.default_rng(seed)
+    n = n_rings * per_ring
+    # spiral over the sphere: elevation sweeps pole-to-pole, azimuth
+    # wraps once per ring
+    elev = np.linspace(-1.35, 1.35, n)
+    azim = 2.0 * np.pi * np.arange(n) / per_ring
+    pos = radius * np.stack(
+        [np.cos(elev) * np.cos(azim), np.cos(elev) * np.sin(azim), np.sin(elev)],
+        axis=1,
+    )
+    # orientation: z along the outward normal, x along the direction of
+    # travel (projected), y completing the frame
+    gt: List[Pose] = []
+    for k in range(n):
+        zax = pos[k] / np.linalg.norm(pos[k])
+        t = pos[min(k + 1, n - 1)] - pos[max(k - 1, 0)]
+        xax = t - (t @ zax) * zax
+        xax = xax / np.linalg.norm(xax)
+        yax = np.cross(zax, xax)
+        gt.append(Pose(np.stack([xax, yax, zax], axis=1), pos[k].copy()))
+
+    def _exp(w):
+        th = np.linalg.norm(w)
+        if th < 1e-12:
+            return np.eye(3)
+        k = w / th
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+    def noisy_rel(i, j, st, sr):
+        rel = gt[i].inverse() * gt[j]
+        return Pose(
+            rel.rotation @ _exp(rng.normal(0, sr, 3)),
+            rel.translation + rng.normal(0, st, 3),
+        )
+
+    info = np.zeros((6, 6))
+    info[:3, :3] = (1.0 / s_t**2 / 25.0) * np.eye(3)
+    info[3:, 3:] = (1.0 / s_r**2 / 25.0) * np.eye(3)
+
+    graph = G2oGraph(dim=3)
+    edges = []
+    for k in range(n - 1):
+        edges.append((k, k + 1, noisy_rel(k, k + 1, s_t, s_r)))
+    for k in range(per_ring, n):  # one closure per pose to the ring below
+        edges.append((k - per_ring, k, noisy_rel(k - per_ring, k, s_t, s_r)))
+    for (i, j, rel) in edges:
+        graph.edges.append(
+            G2oEdge(
+                i, j,
+                np.concatenate([rel.translation, rel.quaternion()]),
+                info.copy(),
+            )
+        )
+
+    # dead-reckon the noisy ODOMETRY chain for the drifted initialization
+    est = gt[0]
+    graph.vertices[0] = np.concatenate([est.translation, est.quaternion()])
+    for k in range(1, n):
+        rel = edges[k - 1][2]  # odometry chain is edges[:n-1] in order
+        est = Pose(
+            est.rotation @ rel.rotation,
+            est.translation + est.rotation @ rel.translation,
+        )
+        graph.vertices[k] = np.concatenate([est.translation, est.quaternion()])
+    graph.fixed.add(0)
+    return graph, pos

@@ -1,0 +1,359 @@
+"""The port's SE(3) ``PoseGraphOptimizer`` against the JAX package's.
+
+On the reference's 80-pose fixture (79 odometry edges, 4 loops, the last
+an identity outlier; tests/test_pose_graph.py builds it the same way) both
+optimizers run in float64 on the CPU with each solver: dense, tridiag,
+banded, cg (chain and Jacobi preconditioners) and auto; with
+``switch_penalty`` 0.03 and the reference's 1e-9 (CG at 0.03 only, see
+FIXTURE_CASES); with ``HuberLoss(1.0)``
+as ``edge_loss``; and anchored by ``set_prior`` instead of a constant pose.
+The LM iteration counts are equal, the poses (positions and quaternions)
+and switches agree within 1e-8 (CG: 1e-6), and ``last_selection`` is the
+same. Also:
+- the scipy oracle (``least_squares(method="lm")`` on the port's own
+  ``edge_residuals``) and the switched-off outlier, as in
+  tests/test_pose_graph.py;
+- ``select_solver`` on full-size sphere2500 and on the two 5,000-pose
+  chains of tests/test_solver_selection.py gives JAX's name and info;
+- a small sphere (5 rings of 20, full information matrices) by banded, and
+  a 120-pose chain with 40 corrections (the chunked Woodbury form, with a
+  reversed and a doubled chain edge) by tridiag, against JAX (counts
+  equal, poses within 1e-8);
+- the unported options raise NotImplementedError, and the ValueErrors are
+  JAX's word for word.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import nonlinear_optimizer_for_slam_tpu as nls
+from nonlinear_optimizer_for_slam_tpu.core import HuberLoss as JHuber
+from nonlinear_optimizer_for_slam_tpu.io import g2o as jg2o
+from nonlinear_optimizer_for_slam_tpu.solvers import pose_graph as jpg
+from nonlinear_optimizer_for_slam_tpu.utils import testing as jtesting
+import nonlinear_optimizer_for_slam_tpu_torch as port
+from nonlinear_optimizer_for_slam_tpu_torch.io import g2o as tg2o
+from nonlinear_optimizer_for_slam_tpu_torch.ops import relative_pose as trp
+from nonlinear_optimizer_for_slam_tpu_torch.solvers import pose_graph as tpg
+
+TOL = 1e-8
+TOL_CG = 1e-6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these tests run many tiny ops, which more
+    threads only slow down when test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def fixture():
+    return jtesting.generate_pose_graph_fixture()
+
+
+def _optimizer(module, **kw):
+    if module == "jax":
+        return jpg.PoseGraphOptimizer(**kw), nls.Pose, jpg.ConstraintType
+    return tpg.PoseGraphOptimizer(device="cpu", **kw), port.Pose, tpg.ConstraintType
+
+
+def _build(module, fixture, prior=False, **kw):
+    _, noisy, constraints = fixture
+    opt, Pose, CT = _optimizer(module, **kw)
+    for i, p in enumerate(noisy):
+        opt.set_pose(i, Pose(p.rotation, p.translation))
+    if prior:
+        opt.set_prior(0, Pose(noisy[0].rotation, noisy[0].translation), sqrt_info=(100.0, 300.0))
+    else:
+        opt.set_pose_constant(0)  # gauge (reference test :91)
+    for c in constraints:
+        rel = c["relative_pose"]
+        opt.set_constraint(
+            c["reference_index"], c["query_index"], Pose(rel.rotation, rel.translation),
+            CT.LOOP if c["is_loop"] else CT.ODOMETRY,
+        )
+    return opt
+
+
+def _state(opt, indices):
+    pos = np.stack([opt.get_pose(i).translation for i in indices])
+    quat = np.stack([opt.get_pose(i).quaternion() for i in indices])
+    return pos, quat
+
+
+def _assert_parity(jopt, js, jsw, topt, ts, tsw, tol):
+    assert int(ts.iterations) == int(js.iterations)
+    assert bool(ts.converged) == bool(js.converged)
+    np.testing.assert_allclose(float(ts.final_cost), float(js.final_cost), rtol=1e-6, atol=1e-12)
+    indices = jopt.pose_indices()
+    assert topt.pose_indices() == indices
+    for got, want in zip(_state(topt, indices), _state(jopt, indices)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    np.testing.assert_allclose(tsw, np.asarray(jsw), rtol=0, atol=tol)
+    assert getattr(topt, "last_solver_choice", None) == getattr(jopt, "last_solver_choice", None)
+    assert getattr(topt, "last_selection", None) == getattr(jopt, "last_selection", None)
+
+
+def _solve_pair(build, tol):
+    jopt, topt = build("jax"), build("torch")
+    js, jsw = jopt.solve()
+    ts, tsw = topt.solve()
+    _assert_parity(jopt, js, jsw, topt, ts, tsw, tol)
+    return topt, ts, tsw
+
+
+# CG runs at 0.03 only, as in the JAX package's own CG tests: at the
+# reference's 1e-9 the switches are nearly free, and a Krylov step stopped
+# at ||r|| <= 1e-5 ||b|| moves them by ~1e-5 on round-off alone (the first
+# LM step's CG stops one iteration apart in the two packages, 41 and 42,
+# its residual within 1 % of the threshold).
+FIXTURE_CASES = [
+    (solver, penalty)
+    for penalty in (0.03, 1e-9)
+    for solver in ("dense", "tridiag", "banded", "cg", "auto")
+    if not (solver == "cg" and penalty < 0.03)
+]
+
+
+@pytest.mark.parametrize("solver, penalty", FIXTURE_CASES)
+def test_fixture_matches_jax(fixture, solver, penalty):
+    tol = TOL_CG if solver == "cg" else TOL
+    topt, ts, tsw = _solve_pair(
+        lambda m: _build(m, fixture, solver=solver, switch_penalty=penalty), tol
+    )
+    if solver == "auto":
+        assert topt.last_solver_choice == "dense"
+    # the summary stays on the solve's device, its records NaN past the end
+    n = int(ts.iterations) + 1
+    assert ts.final_cost.device.type == "cpu"
+    assert not torch.isnan(ts.records.cost[:n]).any() and torch.isnan(ts.records.cost[n:]).all()
+
+
+@pytest.mark.parametrize("solver", ["dense", "tridiag", "banded", "cg"])
+def test_fixture_with_huber_edge_loss_matches_jax(fixture, solver):
+    tol = TOL_CG if solver == "cg" else TOL
+    loss = {"jax": JHuber(1.0), "torch": port.HuberLoss(1.0)}
+    _solve_pair(
+        lambda m: _build(m, fixture, solver=solver, switch_penalty=0.03, edge_loss=loss[m]), tol
+    )
+
+
+def test_jacobi_preconditioned_cg_matches_jax(fixture):
+    _solve_pair(
+        lambda m: _build(m, fixture, solver="cg", cg_precond="jacobi", switch_penalty=0.03),
+        TOL_CG,
+    )
+
+
+@pytest.mark.parametrize("solver", ["dense", "auto"])
+def test_prior_anchored_fixture_matches_jax(fixture, solver):
+    topt, _, _ = _solve_pair(
+        lambda m: _build(m, fixture, prior=True, solver=solver, switch_penalty=0.03), TOL
+    )
+    if solver == "auto":
+        assert topt.last_selection == {"reason": "priors registered"}
+
+
+def test_outlier_loop_switched_off(fixture):
+    """switch_penalty 0.03: the identity-pose outlier loop (77 -> 2)
+    switches off while the genuine loops stay on (tests/test_pose_graph.py)."""
+    opt = _build("torch", fixture, switch_penalty=0.03)
+    _, switches = opt.solve()
+    assert switches.shape == (4,)
+    assert np.all(np.abs(switches[:3]) >= 0.9), switches
+    assert np.abs(switches[3]) < 0.1, switches
+
+
+def test_matches_scipy_oracle(fixture):
+    """Final cost parity with scipy.optimize.least_squares (lm) on the
+    identical ambient-coordinate residual stack, the port's own
+    ``edge_residuals`` (tests/test_pose_graph.py::test_matches_scipy_oracle)."""
+    from scipy.optimize import least_squares
+
+    _, noisy, constraints = fixture
+    opt = _build("torch", fixture)
+    summary, _ = opt.solve()
+
+    f64 = lambda a, dt=torch.float64: torch.as_tensor(np.asarray(a), dtype=dt)
+    is_loop = np.array([1.0 if c["is_loop"] else 0.0 for c in constraints])
+    edges = trp.PoseGraphEdges(
+        f64([c["reference_index"] for c in constraints], torch.long),
+        f64([c["query_index"] for c in constraints], torch.long),
+        f64(np.stack([c["relative_pose"].translation for c in constraints])),
+        f64(np.stack([c["relative_pose"].quaternion() for c in constraints])),
+        f64(is_loop), torch.ones(83, dtype=torch.float64),
+    )
+    loop_slot = np.cumsum(is_loop.astype(int)) - 1
+    x0 = np.concatenate([
+        np.stack([p.translation for p in noisy]).ravel(),
+        np.stack([p.quaternion() for p in noisy]).ravel(),
+        np.ones(4),
+    ])
+    free = np.ones_like(x0, dtype=bool)
+    free[:3] = False  # pose 0 position
+    free[240:244] = False  # pose 0 quaternion
+
+    def residual(x_free):
+        x = x0.copy()
+        x[free] = x_free
+        r = trp.edge_residuals(
+            f64(x[:240].reshape(80, 3)), f64(x[240:560].reshape(80, 4)),
+            f64(x[560:][loop_slot]), edges,
+        )
+        return r.numpy().ravel()
+
+    res = least_squares(residual, x0[free], method="lm", xtol=1e-12, ftol=1e-12)
+    scipy_cost = float(np.sum(res.fun**2))
+    ours = float(summary.final_cost)
+    # both land at the zero floor; the LM stops at its 1e-6 gradient
+    # tolerance: an absolute slack at the floor
+    assert ours <= max(scipy_cost * 1.05, 1e-8), (ours, scipy_cost)
+
+
+# ---- solver selection --------------------------------------------------------
+
+
+def _chain_graphs():
+    """The two 5,000-pose chains of tests/test_solver_selection.py: three
+    long loops (tridiag), and a closure every 5 poses (banded)."""
+    P = 5000
+    ref = np.arange(P - 1, dtype=np.int64)
+    out = {}
+    lref = np.array([0, P // 4, 10], np.int64)
+    lqry = np.array([P // 2, 3 * P // 4, P - 10], np.int64)
+    out["three_loops"] = (
+        np.concatenate([ref, lref]), np.concatenate([ref + 1, lqry]),
+        np.concatenate([np.zeros(P - 1), np.ones(3)]),
+    )
+    lr = np.arange(0, P - 5, 5, dtype=np.int64)
+    out["ring_closures"] = (
+        np.concatenate([ref, lr]), np.concatenate([ref + 1, lr + 5]),
+        np.concatenate([np.zeros(P - 1), np.ones(len(lr))]),
+    )
+    return P, out
+
+
+def test_select_solver_matches_jax():
+    sphere, _ = jtesting.generate_sphere_g2o()
+    ref = np.array([e.i for e in sphere.edges], np.int64)
+    qry = np.array([e.j for e in sphere.edges], np.int64)
+    is_loop = (np.abs(ref - qry) != 1).astype(np.float64)
+    cases = {"sphere2500": (len(sphere.vertices), ref, qry, is_loop)}
+    P, chains = _chain_graphs()
+    cases.update({k: (P,) + v for k, v in chains.items()})
+    expect = {"sphere2500": "banded", "three_loops": "tridiag", "ring_closures": "banded"}
+
+    def plan_fn():
+        raise AssertionError("these graphs never need the dissection plan")
+
+    for name, (P_, r, q, l) in cases.items():
+        want = jpg.select_solver(P_, r, q, l, 7, plan_fn=plan_fn)
+        got = tpg.select_solver(P_, r, q, l, 7, plan_fn=plan_fn)
+        assert got == want and got[0] == expect[name], (name, got, want)
+    assert cases["sphere2500"][0] == 2500 and len(ref) == 4899
+
+
+def test_auto_raises_where_it_would_consult_the_sparse_plan():
+    """A random expander graph: the band is fat, so 'auto' would build the
+    multifrontal plan, which is not ported; the port says so rather than
+    pick another family than JAX would."""
+    rng = np.random.default_rng(3)
+    P = 1000
+    opt = tpg.PoseGraphOptimizer(solver="auto", device="cpu")
+    for i in range(P):
+        opt.set_pose(i, port.Pose(np.eye(3), rng.normal(size=3)))
+    opt.set_pose_constant(0)
+    for i in range(P - 1):
+        opt.set_constraint(i, i + 1, port.Pose(np.eye(3), rng.normal(size=3)))
+    for a, b in rng.integers(0, P, (2 * P, 2)):
+        if abs(a - b) > 1:
+            opt.set_constraint(int(a), int(b), port.Pose(np.eye(3), rng.normal(size=3)),
+                               tpg.ConstraintType.LOOP)
+    with pytest.raises(NotImplementedError, match="A.11"):
+        opt.solve()
+
+
+# ---- larger graphs against JAX -----------------------------------------------
+
+
+def test_small_sphere_banded_matches_jax(tmp_path):
+    graph, _ = jtesting.generate_sphere_g2o(n_rings=5, per_ring=20)
+    path = str(tmp_path / "sphere100.g2o")
+    jg2o.write_g2o(path, graph)
+    loaders = {"jax": jg2o.load_pose_graph, "torch": lambda p, **kw: tg2o.load_pose_graph(p, device="cpu", **kw)}
+    topt, ts, _ = _solve_pair(lambda m: loaders[m](path, solver="banded"), TOL)
+    assert topt._flatten_banded(topt._flatten())["bandwidth"] <= 25
+    assert int(ts.iterations) > 1
+
+
+def _chunked_chain(module):
+    """120-pose chain (one edge reversed, one doubled) plus 40 noisy long
+    loops: 41 corrections, past the dense-columns limit of 32."""
+    rng = np.random.default_rng(7)
+    P = 120
+    opt, Pose, CT = _optimizer(module, solver="tridiag", switch_penalty=0.03)
+    true = np.cumsum(0.3 * rng.normal(size=(P, 3)), axis=0)
+    for i in range(P):
+        opt.set_pose(i, Pose(np.eye(3), true[i] + (0.05 * rng.normal(size=3) if i else 0.0)))
+    opt.set_pose_constant(0)
+    for i in range(P - 1):
+        a, b = (i + 1, i) if i == 50 else (i, i + 1)
+        opt.set_constraint(a, b, Pose(np.eye(3), true[b] - true[a]))
+    opt.set_constraint(70, 71, Pose(np.eye(3), true[71] - true[70] + 0.01))
+    for _ in range(40):
+        a, b = sorted(rng.choice(P, 2, replace=False))
+        b = b if b - a > 1 else min(a + 2, P - 1)
+        opt.set_constraint(int(a), int(b), Pose(np.eye(3), true[b] - true[a] + 0.02 * rng.normal(size=3)), CT.LOOP)
+    return opt
+
+
+def test_chunked_woodbury_tridiag_matches_jax():
+    topt, _, _ = _solve_pair(_chunked_chain, TOL)
+    td = topt._flatten_tridiag(topt._flatten())
+    assert not td["chain_seq"] and topt.num_constraints - td["num_chain"] > tpg._CORR_DENSE_MAX
+
+
+# ---- what is not ported, and the errors -----------------------------------------
+
+
+def test_unported_options_raise(fixture):
+    with pytest.raises(NotImplementedError, match="A.11"):
+        tpg.PoseGraphOptimizer(solver="sparse", device="cpu")
+    with pytest.raises(NotImplementedError, match="A.8"):
+        tpg.PoseGraphOptimizer(solver="cg", mesh=object(), device="cpu")
+    opt = _build("torch", fixture)
+    for call in (opt.initialize, opt.covariance, opt.solve_batch):
+        with pytest.raises(NotImplementedError, match="A.11"):
+            call()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tpg.PoseGraphOptimizer()
+
+
+def _error(fn):
+    with pytest.raises(ValueError) as info:
+        fn()
+    return str(info.value)
+
+
+def test_value_errors_match_jax(fixture):
+    for kw in (dict(solver="bogus"), dict(cg_precond="bogus")):
+        assert _error(lambda: _optimizer("torch", **kw)) == _error(lambda: _optimizer("jax", **kw))
+    empty = {m: _optimizer(m)[0] for m in ("jax", "torch")}
+    for m, opt in empty.items():
+        opt.set_pose(0, (nls.Pose if m == "jax" else port.Pose).identity())
+    assert _error(empty["torch"].solve) == _error(empty["jax"].solve)
+    banded = {m: _build(m, fixture, prior=True, solver="banded") for m in ("jax", "torch")}
+    assert _error(banded["torch"].solve) == _error(banded["jax"].solve)
+    opt = _build("torch", fixture)
+    with pytest.raises(ValueError, match="self-constraint"):
+        opt.set_constraint(3, 3, port.Pose.identity())
+    with pytest.raises(KeyError):
+        opt.set_constraint(0, 999, port.Pose.identity())
+    with pytest.raises(KeyError):
+        opt.set_pose_constant(999)
