@@ -28,7 +28,14 @@ ops and no port kernel: the reference's 80-pose fixture by every solver
 (dense, tridiag, banded, cg, auto) against dense and the scipy oracle,
 sphere2500 through the g2o writer and reader and solver="auto" (banded)
 against dense at 17,500 unknowns, and the 5,000-pose chain (tridiag),
-with the 2,000-pose chain by tridiag against dense.
+with the 2,000-pose chain by tridiag against dense. Then the sparse
+multifrontal solver, the SE(2) optimizer and the chordal initializer, in
+float64 and with no port kernel either: the 80-pose fixture by sparse
+against dense (two sparse solves bitwise equal), sphere2500 by sparse
+against banded, M3500 (3,500 SE(2) poses) through the g2o writer and
+reader, ``initialize(method="chordal")`` and solver="auto" (sparse)
+against banded and dense from the same start, and the 10,000-pose city
+(auto: sparse) timed beside banded under a cap of LM iterations.
 Every phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code.
 The line before the last is the ``kernels`` summary, the last line
@@ -1328,6 +1335,11 @@ def main() -> int:
     _pose_graph_reference(dev, name, smi)
     _pose_graph_sphere2500(dev, name, smi)
     _pose_graph_chain(dev, name, smi)
+    # ---- the sparse multifrontal solver, SE(2) and the initializer -------
+    _pose_graph_sparse_reference(dev, name, smi)
+    _pose_graph_sparse_sphere2500(dev, name, smi)
+    _pose_graph_m3500(dev, name, smi)
+    _pose_graph_city10000(dev, name, smi)
 
     kernels = []
     for kernel in KERNEL_SHAPE:
@@ -1740,6 +1752,322 @@ def _pose_graph_chain(dev, name: str, smi: str) -> None:
                           cost_record_max_rel_err=record_err, pose_max_abs_err=exact_err,
                           max_error_before=err_before, max_error_after=err_after),
          port_kernel_launches=0, device=name, nvidia_smi=smi)
+
+
+# The M3500 flow and the 10,000-pose city (tests/test_solver_selection.py:
+# 54-69 and 160-180): generate_manhattan_g2o() defaults, and the city at
+# n_poses=10000, arena=17, seed=11.
+M3500 = dict()
+CITY = dict(n_poses=10000, arena=17, seed=11)
+# LM iterations of each timed city solve: the city's sparse and banded
+# solves run under this cap so that the phase fits the smoke's time.
+CITY_LM_ITERATIONS = 10
+# M3500's sparse solve against banded and dense from one initialization:
+# the final costs within rtol 1e-10 and the poses within this bound.
+M3500_POSE_TOL = 1e-6
+
+
+def _pg2d_state(opt):
+    return np.stack([opt.get_pose(i) for i in opt.pose_indices()])
+
+
+def _pg_solve_timed(opt, options):
+    """One solve, its wall (ms, host clock to a synchronise) and the
+    solve's peak device memory in GB above what was allocated before it
+    (earlier phases leave tensors allocated)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary, sw = opt.solve(options)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return summary, sw, wall, (torch.cuda.max_memory_allocated() - before) / 1e9
+
+
+def _pose_graph_sparse_reference(dev, name: str, smi: str) -> None:
+    """The 80-pose fixture by solver="sparse" (the nested-dissection
+    multifrontal Cholesky) against dense, with and without Huber, and two
+    sparse solves bitwise equal."""
+    import torch
+
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers import pose_graph as pg
+    from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+
+    ck.reset_launches()
+    _, noisy, constraints = testing.generate_pose_graph_fixture()
+    LOOP, ODOM = pg.ConstraintType.LOOP, pg.ConstraintType.ODOMETRY
+
+    def build(solver, loss=None):
+        opt = pg.PoseGraphOptimizer(switch_penalty=0.03, solver=solver, edge_loss=loss, device=dev)
+        for i, p in enumerate(noisy):
+            opt.set_pose(i, p)
+        opt.set_pose_constant(0)
+        for c in constraints:
+            opt.set_constraint(c["reference_index"], c["query_index"], c["relative_pose"],
+                               LOOP if c["is_loop"] else ODOM)
+        return opt
+
+    runs, agreement = {}, {}
+    for label, solver, loss in (("dense", "dense", None), ("sparse", "sparse", None),
+                                ("sparse_again", "sparse", None),
+                                ("dense_huber", "dense", port.HuberLoss(1.0)),
+                                ("sparse_huber", "sparse", port.HuberLoss(1.0))):
+        opt = build(solver, loss)
+        summary, sw, wall, _ = _pg_solve_timed(opt, port.Options().replace(max_iterations=500))
+        runs[label] = dict(summary=summary, sw=sw, state=_pg_state(opt, range(80)), wall_ms=wall)
+    _no_port_kernels("pose_graph_sparse_reference")
+    # the JAX package's sparse-against-dense tolerances
+    # (tests/test_pose_graph_sparse.py:166-203)
+    for sparse, dense, cost_rtol, tol in (("sparse", "dense", 1e-10, 1e-9),
+                                          ("sparse_huber", "dense_huber", 1e-8, 1e-7)):
+        s, d = runs[sparse], runs[dense]
+        cost_s, cost_d = float(s["summary"].final_cost), float(d["summary"].final_cost)
+        pose_err = float(max(np.abs(a - b).max() for a, b in zip(s["state"], d["state"])))
+        switch_err = float(np.abs(s["sw"] - d["sw"]).max())
+        agreement[sparse] = dict(
+            lm_iterations=int(s["summary"].iterations),
+            lm_iterations_dense=int(d["summary"].iterations),
+            final_cost=cost_s, final_cost_dense=cost_d,
+            pose_max_abs_err=pose_err, switch_max_abs_err=switch_err,
+            cost_rtol=cost_rtol, tolerance=tol,
+        )
+        if (int(s["summary"].iterations) != int(d["summary"].iterations)
+                or abs(cost_s - cost_d) > cost_rtol * abs(cost_d)
+                or pose_err > tol or switch_err > tol):
+            raise AssertionError(f"pose_graph_sparse_reference: {sparse} vs dense: {agreement[sparse]}")
+    a, b = runs["sparse"], runs["sparse_again"]
+    if not (all(np.array_equal(x, y) for x, y in zip(a["state"], b["state"]))
+            and np.array_equal(a["sw"], b["sw"])
+            and torch.equal(torch.nan_to_num(a["summary"].records.cost),
+                            torch.nan_to_num(b["summary"].records.cost))):
+        raise AssertionError("pose_graph_sparse_reference: two sparse solves differ")
+    sw = runs["sparse"]["sw"]
+    if not (np.all(sw[:3] >= 0.9) and abs(sw[3]) < 0.1):
+        raise AssertionError(f"pose_graph_sparse_reference: switches {sw.tolist()}")
+    emit("pose_graph_sparse_reference", poses=80, edges=len(constraints), loops=4,
+         dtype="float64", switch_penalty=0.03, against_dense=agreement,
+         wall_ms_one_solve={k: v["wall_ms"] for k, v in runs.items()},
+         switches=sw.tolist(), sparse_twice_bitwise=True, port_kernel_launches=0,
+         device=name, nvidia_smi=smi)
+
+
+def _pose_graph_sparse_sphere2500(dev, name: str, smi: str) -> None:
+    """sphere2500 by solver="sparse" against banded, as the sphere2500
+    phase holds banded against dense."""
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.io import g2o
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
+
+    ck.reset_launches()
+    graph, truth = testing.generate_sphere_g2o()
+    path = os.path.join(REPO, "build", "sphere2500.g2o")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    g2o.write_g2o(path, graph)
+    rmse = lambda pos: float(np.sqrt(np.mean(np.sum((pos - truth) ** 2, axis=1))))
+    runs, states, summaries = {}, {}, {}
+    for solver in ("sparse", "banded"):
+        opt = g2o.load_pose_graph(path, solver=solver, device=dev)
+        ids = opt.pose_indices()
+        initial = {vid: opt.get_pose(vid) for vid in ids}
+        summaries[solver], _, wall, peak = _pg_solve_timed(opt, None)
+        states[solver] = _pg_state(opt, ids)
+        n_eval = _evaluations([summaries[solver]])
+        runs[solver] = dict(
+            final_cost=float(summaries[solver].final_cost), rmse_after=rmse(states[solver][0]),
+            lm_iterations=int(summaries[solver].iterations), wall_ms=wall,
+            ms_per_lm_iteration=wall / n_eval, peak_memory_gb=peak,
+        )
+        if solver == "sparse":
+            plan = opt._flatten()["sparse"]["plan"]
+            stats = plan.stats()
+            runs[solver].update(plan_levels=stats["levels"], plan_factor_flops=stats["factor_flops"],
+                                plan_max_front=stats["max_front"])
+            for vid, pose in initial.items():
+                opt.set_pose(vid, pose)
+            capped = []
+            prof = _profile(lambda: capped.append(opt.solve(port.Options().replace(
+                max_iterations=PROFILED_LM_ITERATIONS))[0]), warm=False)
+            runs[solver].update(
+                profiled_lm_evaluations=_evaluations(capped),
+                device_kernels_per_lm_iteration=prof["device_kernels"] / _evaluations(capped),
+                device_idle_share=prof["device_idle_share"], top_device=prof["top_device"][:5])
+    _no_port_kernels("pose_graph_sparse_sphere2500")
+    s, b = runs["sparse"], runs["banded"]
+    pose_err = float(np.abs(states["sparse"][0] - states["banded"][0]).max())
+    quat_err = float(np.abs(states["sparse"][1] - states["banded"][1]).max())
+    s.update(position_max_abs_err_vs_banded=pose_err, quaternion_max_abs_err_vs_banded=quat_err)
+    # as the sphere2500 phase holds banded against dense: each solve stops
+    # on a step under 1e-6 at the end of a slow tail, so the stops agree to
+    # about twice that in the worst position
+    if abs(s["final_cost"] - b["final_cost"]) > 1e-10 * abs(b["final_cost"]) or max(pose_err, quat_err) > 2e-6:
+        raise AssertionError(f"pose_graph_sparse_sphere2500: sparse vs banded: {runs}")
+    emit("pose_graph_sparse_sphere2500", poses=len(graph.vertices), edges=len(graph.edges),
+         dtype="float64", solvers=runs, port_kernel_launches=0, device=name, nvidia_smi=smi)
+
+
+def _manhattan_flow(dev, kw: dict, file_name: str):
+    """generate_manhattan_g2o(**kw) -> write_g2o -> load_pose_graph
+    (solver="auto") -> initialize(method="chordal"). Returns (path, the
+    optimizer, the initialized poses, ground truth, timings)."""
+    import torch
+
+    from nonlinear_optimizer_for_slam_tpu_torch.io import g2o
+    from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
+
+    t0 = time.perf_counter()
+    graph, truth = testing.generate_manhattan_g2o(**kw)
+    path = os.path.join(REPO, "build", file_name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    g2o.write_g2o(path, graph)
+    t1 = time.perf_counter()
+    opt = g2o.load_pose_graph(path, solver="auto", device=dev)
+    t2 = time.perf_counter()
+    opt.initialize(method="chordal")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    initial = {vid: opt.get_pose(vid) for vid in opt.pose_indices()}
+    timings = dict(generate_and_write_ms=(t1 - t0) * 1e3, load_ms=(t2 - t1) * 1e3,
+                   chordal_init_ms=(t3 - t2) * 1e3)
+    return path, graph, opt, initial, truth, timings
+
+
+def _from(path, solver, initial, dev):
+    from nonlinear_optimizer_for_slam_tpu_torch.io import g2o
+
+    opt = g2o.load_pose_graph(path, solver=solver, device=dev)
+    for vid, pose in initial.items():
+        opt.set_pose(vid, pose)
+    return opt
+
+
+def _pose_graph_m3500(dev, name: str, smi: str) -> None:
+    """M3500 (Olson's Manhattan world, 3,500 SE(2) poses) through the g2o
+    file, the chordal initialization and solver="auto": auto picks sparse;
+    the sparse solve against banded and dense (10,500 unknowns) from the
+    same initialization."""
+    import torch
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_launches()
+    path, graph, opt, initial, truth, timings = _manhattan_flow(dev, M3500, "m3500.g2o")
+    P = len(initial)
+    err = lambda xyt: np.linalg.norm(xyt[:, :2] - truth[:, :2], axis=1)
+    start = np.stack([graph.vertices[k] for k in sorted(graph.vertices)])
+    init_err = err(_pg2d_state(opt))
+    options = port.Options().replace(max_iterations=500)
+    summaries, states, runs = {}, {}, {}
+    summaries["sparse"], sw, wall, peak = _pg_solve_timed(opt, options)
+    if opt.last_solver_choice != "sparse":
+        raise AssertionError(f"pose_graph_m3500: auto chose {opt.last_solver_choice} {opt.last_selection}")
+    selection = dict(opt.last_selection)
+    states["sparse"] = _pg2d_state(opt)
+    plan = opt._sparse_plan[1]
+    timed, _ = _pg_timed(opt, initial, options)
+    runs["sparse"] = dict(first_solve_wall_ms=wall, peak_memory_gb=peak, **timed,
+                          plan_levels=plan.num_levels, plan_fronts=plan.stats()["fronts"],
+                          plan_factor_flops=plan.stats()["factor_flops"])
+    for solver in ("banded", "dense"):
+        other = _from(path, solver, initial, dev)
+        summaries[solver], _, wall, peak = _pg_solve_timed(other, options)
+        states[solver] = _pg2d_state(other)
+        n_eval = _evaluations([summaries[solver]])
+        runs[solver] = dict(wall_ms=wall, ms_per_lm_iteration=wall / n_eval, peak_memory_gb=peak,
+                            lm_iterations=int(summaries[solver].iterations))
+        if solver == "banded":
+            for vid, pose in initial.items():
+                other.set_pose(vid, pose)
+            capped = []
+            prof = _profile(lambda: capped.append(other.solve(options.replace(
+                max_iterations=PROFILED_LM_ITERATIONS))[0]), warm=False)
+            runs[solver].update(
+                device_kernels_per_lm_iteration=prof["device_kernels"] / _evaluations(capped),
+                device_idle_share=prof["device_idle_share"], top_device=prof["top_device"][:5])
+    _no_port_kernels("pose_graph_m3500")
+    against = {}
+    cost_s = float(summaries["sparse"].final_cost)
+    rec_s = summaries["sparse"].records.cost.cpu().numpy()
+    for solver in ("banded", "dense"):
+        cost_o = float(summaries[solver].final_cost)
+        rec_o = summaries[solver].records.cost.cpu().numpy()
+        n_common = min(_evaluations([summaries["sparse"]]), _evaluations([summaries[solver]]))
+        against[solver] = dict(
+            lm_iterations=int(summaries["sparse"].iterations),
+            lm_iterations_other=int(summaries[solver].iterations),
+            final_cost=cost_s, final_cost_other=cost_o,
+            pose_max_abs_err=float(np.abs(states["sparse"] - states[solver]).max()),
+            cost_record_rel_err_max=float(
+                (np.abs(rec_s[:n_common] - rec_o[:n_common]) / rec_o[:n_common]).max()),
+        )
+        a = against[solver]
+        if abs(cost_s - cost_o) > 1e-10 * abs(cost_o) or (
+                a["pose_max_abs_err"] > M3500_POSE_TOL
+                and a["lm_iterations"] == a["lm_iterations_other"]):
+            raise AssertionError(f"pose_graph_m3500: sparse vs {solver}: {a}")
+    after = err(states["sparse"])
+    if not (after.mean() < 0.1 and after.max() < 0.15 * err(start).max()):
+        raise AssertionError(f"pose_graph_m3500: error against the truth {after.mean()} {after.max()}")
+    emit("pose_graph_m3500", poses=P, edges=len(graph.edges), dtype="float64",
+         flow="write_g2o -> load_pose_graph(solver='auto') -> initialize('chordal') -> solve()",
+         auto_choice="sparse", selection=selection, **timings,
+         error_before_mean_m=float(err(start).mean()), error_init_mean_m=float(init_err.mean()),
+         error_after_mean_m=float(after.mean()), error_after_max_m=float(after.max()),
+         lm_iterations={k: int(v.iterations) for k, v in summaries.items()},
+         measured_ms_per_lm_iteration={k: v["ms_per_lm_iteration"] for k, v in runs.items()},
+         predicted_ms_per_lm_iteration={"sparse": selection["predicted_sparse_ms"],
+                                        "banded": selection["predicted_banded_ms"]},
+         solvers=runs, sparse_against=against, dense_unknowns=3 * P,
+         port_kernel_launches=0, device=name, nvidia_smi=smi)
+
+
+def _pose_graph_city10000(dev, name: str, smi: str) -> None:
+    """The 10,000-pose city through the same flow: auto picks sparse; the
+    sparse and banded solves timed under CITY_LM_ITERATIONS LM iterations
+    from the same initialization."""
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_launches()
+    path, graph, opt, initial, truth, timings = _manhattan_flow(dev, CITY, "city10000.g2o")
+    capped = port.Options().replace(max_iterations=CITY_LM_ITERATIONS)
+    summaries, runs = {}, {}
+    summaries["sparse"], _, wall, peak = _pg_solve_timed(opt, capped)
+    if opt.last_solver_choice != "sparse":
+        raise AssertionError(f"pose_graph_city10000: auto chose {opt.last_solver_choice} {opt.last_selection}")
+    selection = dict(opt.last_selection)
+    plan = opt._sparse_plan[1]
+    timed, _ = _pg_timed(opt, initial, capped, runs=1)
+    runs["sparse"] = dict(first_solve_wall_ms=wall, peak_memory_gb=peak, **timed,
+                          plan_levels=plan.num_levels, plan_factor_flops=plan.stats()["factor_flops"])
+    other = _from(path, "banded", initial, dev)
+    summaries["banded"], _, wall, peak = _pg_solve_timed(other, capped)
+    n_eval = _evaluations([summaries["banded"]])
+    runs["banded"] = dict(wall_ms=wall, ms_per_lm_iteration=wall / n_eval, peak_memory_gb=peak,
+                          lm_iterations=int(summaries["banded"].iterations))
+    _no_port_kernels("pose_graph_city10000")
+    rec = {k: v.records.cost.cpu().numpy() for k, v in summaries.items()}
+    n_common = min(_evaluations([summaries["sparse"]]), n_eval)
+    record_err = float((np.abs(rec["sparse"][:n_common] - rec["banded"][:n_common])
+                        / rec["banded"][:n_common]).max())
+    if not (np.isfinite(float(summaries["sparse"].final_cost)) and record_err < 1e-8):
+        raise AssertionError(f"pose_graph_city10000: sparse vs banded records {record_err}")
+    emit("pose_graph_city10000", poses=len(initial), edges=len(graph.edges), dtype="float64",
+         auto_choice="sparse", selection=selection, max_iterations=CITY_LM_ITERATIONS, **timings,
+         lm_iterations={k: int(v.iterations) for k, v in summaries.items()},
+         final_cost={k: float(v.final_cost) for k, v in summaries.items()},
+         cost_record_rel_err_max_sparse_vs_banded=record_err,
+         measured_ms_per_lm_iteration={k: v["ms_per_lm_iteration"] for k, v in runs.items()},
+         predicted_ms_per_lm_iteration={"sparse": selection["predicted_sparse_ms"],
+                                        "banded": selection["predicted_banded_ms"]},
+         solvers=runs, port_kernel_launches=0, device=name, nvidia_smi=smi)
 
 
 def _evaluations(summaries) -> int:

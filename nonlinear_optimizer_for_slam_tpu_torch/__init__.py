@@ -17,8 +17,11 @@ autodiff oracle (``solvers.autodiff``), the streaming map builder
 factor evaluation runs in the hand-written CUDA kernels ``csrc/maha6.cu``,
 ``csrc/maha3.cu``, ``csrc/maha3c.cu``, ``csrc/reproj.cu`` and
 ``csrc/p2p.cu``. The SE(3) pose-graph optimizer (``PoseGraphOptimizer``:
-dense, tridiag, banded, CG and ``solver="auto"``) and g2o file IO
-(``io.g2o``) run in plain PyTorch ops, as the JAX package's run in XLA.
+dense, tridiag, banded, sparse multifrontal, CG and ``solver="auto"``), the
+SE(2) ``PoseGraphOptimizer2D`` (dense, banded, sparse, CG, auto), the
+spanning-tree and chordal initializers (``solvers.graph_init``, behind
+``initialize()``) and g2o file IO for 3-D and 2-D graphs (``io.g2o``) run in
+plain PyTorch ops, as the JAX package's run in XLA.
 """
 
 from . import core, interop, io, ops, pipelines, solvers, utils
@@ -58,6 +61,7 @@ from .solvers import (
     MahalanobisDistanceMinimizer3DOF,
     PointToPlaneMinimizer,
     PoseGraphOptimizer,
+    PoseGraphOptimizer2D,
     ReprojectionErrorMinimizer,
     Summary,
     finalize_solve_batch,

@@ -32,7 +32,14 @@ a given device:
   as int64, the rest in ``dtype``;
 - ``pose_graph_state``: a pose-graph solve's state, ``positions`` (P, 3),
   ``quaternions`` (P, 4) and ``switches`` (L,), to ``device`` in ``dtype``
-  as a :class:`PoseGraphState`.
+  as a :class:`PoseGraphState`;
+- ``pose_graph_2d_edges``: the six ``PoseGraph2DEdges`` fields
+  (``reference_indices``, ``query_indices``, ``relative_xyt``, ``is_loop``,
+  ``mask``, and ``sqrt_info``: None, (E, 3) diagonal rows or (E, 3, 3)
+  matrices), to ``device``: the indices as int64, the rest in ``dtype``;
+- ``pose_graph_2d_state``: an SE(2) solve's state, ``xyt`` (P, 3) and
+  ``switches`` (L,), to ``device`` in ``dtype`` as a
+  :class:`PoseGraph2DState`.
 
 :func:`to_reference` is the inverse: the same dicts back, as numpy (the
 intrinsics as floats and ints).
@@ -58,6 +65,7 @@ from .core.options import (
 from .core.pose import Pose
 from .ops.mahalanobis import MahalanobisData
 from .ops.relative_pose import PoseGraphEdges
+from .solvers.pose_graph import PoseGraph2DEdges
 from .ops.reprojection import CameraIntrinsics, ReprojectionData
 from .pipelines.fused_registration import RegistrarMap
 from .pipelines.ndt import NdtMap
@@ -85,6 +93,14 @@ class PoseGraphState(NamedTuple):
     switches: torch.Tensor
 
 
+class PoseGraph2DState(NamedTuple):
+    """An SE(2) pose graph's solve state: xyt (P, 3) and loop switches
+    (L,)."""
+
+    xyt: torch.Tensor
+    switches: torch.Tensor
+
+
 class PortState(NamedTuple):
     """The port's objects built by :func:`from_reference`; a field is None
     where its input was not given."""
@@ -99,6 +115,8 @@ class PortState(NamedTuple):
     intrinsics: Optional[CameraIntrinsics] = None
     pose_graph_edges: Optional[PoseGraphEdges] = None
     pose_graph_state: Optional[PoseGraphState] = None
+    pose_graph_2d_edges: Optional[PoseGraph2DEdges] = None
+    pose_graph_2d_state: Optional[PoseGraph2DState] = None
 
 
 def _enum(cls, value):
@@ -140,14 +158,16 @@ def from_reference(
     intrinsics: Optional[Mapping[str, Any]] = None,
     pose_graph_edges: Optional[Mapping[str, Optional[np.ndarray]]] = None,
     pose_graph_state: Optional[Mapping[str, np.ndarray]] = None,
+    pose_graph_2d_edges: Optional[Mapping[str, Optional[np.ndarray]]] = None,
+    pose_graph_2d_state: Optional[Mapping[str, np.ndarray]] = None,
     device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> PortState:
     """The port's objects from numpy copies of the JAX package's (see the
-    module docstring). ``data``, ``registrar_map``, ``reprojection_data``,
-    ``pose_graph_edges`` and ``pose_graph_state`` go to ``device`` in
-    ``dtype`` (edge indices as int64); raises if ``device`` names CUDA and no GPU
-    is present."""
+    module docstring). ``data``, ``registrar_map``, ``reprojection_data``
+    and the pose-graph edges and states go to ``device`` in ``dtype`` (edge
+    indices as int64); raises if ``device`` names CUDA and no GPU is
+    present."""
     device = resolve_device(device)
     port_map = None
     if ndt_map is not None:
@@ -195,26 +215,38 @@ def from_reference(
             width=int(intrinsics.get("width", 0)),
             height=int(intrinsics.get("height", 0)),
         )
+    index = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=device)
+    optional = lambda a: None if a is None else to_device(a)
     port_edges = None
     if pose_graph_edges is not None:
-        index = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=device)
         port_edges = PoseGraphEdges(
             index(pose_graph_edges["reference_indices"]),
             index(pose_graph_edges["query_indices"]),
             *(to_device(pose_graph_edges[f]) for f in PoseGraphEdges._fields[2:6]),
-            sqrt_info=(
-                None if pose_graph_edges.get("sqrt_info") is None
-                else to_device(pose_graph_edges["sqrt_info"])
-            ),
+            sqrt_info=optional(pose_graph_edges.get("sqrt_info")),
         )
     port_graph_state = None
     if pose_graph_state is not None:
         port_graph_state = PoseGraphState(
             *(to_device(pose_graph_state[f]) for f in PoseGraphState._fields)
         )
+    port_edges_2d = None
+    if pose_graph_2d_edges is not None:
+        port_edges_2d = PoseGraph2DEdges(
+            index(pose_graph_2d_edges["reference_indices"]),
+            index(pose_graph_2d_edges["query_indices"]),
+            *(to_device(pose_graph_2d_edges[f]) for f in PoseGraph2DEdges._fields[2:5]),
+            sqrt_info=optional(pose_graph_2d_edges.get("sqrt_info")),
+        )
+    port_state_2d = None
+    if pose_graph_2d_state is not None:
+        port_state_2d = PoseGraph2DState(
+            *(to_device(pose_graph_2d_state[f]) for f in PoseGraph2DState._fields)
+        )
     return PortState(
         port_map, port_data, port_pose, port_loss, port_options, port_registrar_map,
         port_reprojection, port_intrinsics, port_edges, port_graph_state,
+        port_edges_2d, port_state_2d,
     )
 
 
@@ -268,5 +300,15 @@ def to_reference(state: PortState) -> dict:
     if state.pose_graph_state is not None:
         out["pose_graph_state"] = {
             f: a.cpu().numpy() for f, a in zip(PoseGraphState._fields, state.pose_graph_state)
+        }
+    if state.pose_graph_2d_edges is not None:
+        out["pose_graph_2d_edges"] = {
+            f: None if a is None else a.cpu().numpy()
+            for f, a in zip(PoseGraph2DEdges._fields, state.pose_graph_2d_edges)
+        }
+    if state.pose_graph_2d_state is not None:
+        out["pose_graph_2d_state"] = {
+            f: a.cpu().numpy()
+            for f, a in zip(PoseGraph2DState._fields, state.pose_graph_2d_state)
         }
     return out

@@ -16,9 +16,9 @@ Records read and written:
   both: ``FIX id``
 
 :func:`load_pose_graph` builds a :class:`PoseGraphOptimizer` from a 3-D
-file of poses; 2-D files and landmark records raise NotImplementedError
-until ``PoseGraphOptimizer2D`` and the pose-landmark optimizers are ported
-(ROADMAP A.11).
+file of poses and a :class:`PoseGraphOptimizer2D` from a 2-D one; landmark
+records raise NotImplementedError until the pose-landmark optimizers are
+ported.
 
 Quaternions are (x, y, z, w) on disk (g2o/Eigen order) and (w, x, y, z) in
 this package. Information matrices are the upper triangle row by row,
@@ -32,11 +32,15 @@ and uses 2 vec. The loader scales the rotation rows of the sqrt factor by
 1/2, which preserves the g2o objective exactly whenever the translation
 information block is isotropic and has no translation-rotation cross
 terms (true of every standard benchmark dataset); otherwise the
-translation anisotropy is read in the world frame.
+translation anisotropy is read in the world frame. g2o's EDGE_SE2 error
+is ``R_rel^T`` times this package's translation residual; the loader folds
+that constant rotation into the sqrt factor, so the SE(2) objective
+matches g2o exactly for any information matrix.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set
 
@@ -46,6 +50,7 @@ from ..core.pose import Pose, np_quat_to_rotmat, np_rotmat_to_quat
 from ..solvers.pose_graph import (
     ConstraintType,
     PoseGraphOptimizer,
+    PoseGraphOptimizer2D,
     sqrt_info_from_information,
 )
 
@@ -230,6 +235,14 @@ def _edge_sqrt_info_3d(info: np.ndarray) -> np.ndarray:
     return sqrt_info_from_information(info) @ _ROT_HALF
 
 
+def _edge_sqrt_info_2d(info: np.ndarray, dtheta: float) -> np.ndarray:
+    # fold the constant R_rel^T (g2o expresses the translation error in
+    # the measurement frame) into the sqrt factor: exact for any info
+    c, s = math.cos(dtheta), math.sin(dtheta)
+    T = np.array([[c, s, 0.0], [-s, c, 0.0], [0.0, 0.0, 1.0]])
+    return sqrt_info_from_information(info) @ T
+
+
 def load_pose_graph(
     path: str,
     *,
@@ -239,8 +252,9 @@ def load_pose_graph(
     unit_information: bool = False,
     **optimizer_kwargs,
 ) -> PoseGraphOptimizer:
-    """Read a 3-D g2o file into a ready-to-solve :class:`PoseGraphOptimizer`
-    (``optimizer_kwargs``, ``device=`` included, go to its constructor).
+    """Read a g2o file into a ready-to-solve :class:`PoseGraphOptimizer`
+    (3-D files) or :class:`PoseGraphOptimizer2D` (2-D files);
+    ``optimizer_kwargs``, ``device=`` included, go to its constructor.
 
     Edges whose endpoint ids differ by >= ``loop_closure_gap`` are loop
     closures; with ``switchable_loops=True`` they get switchable
@@ -249,11 +263,6 @@ def load_pose_graph(
     reference's unweighted behavior). The first vertex (or every FIX
     record) is held constant for gauge."""
     graph = read_g2o(path)
-    if graph.dim != 3:
-        raise NotImplementedError(
-            f"{path}: 2-D g2o files load into PoseGraphOptimizer2D, which is "
-            "not ported to the PyTorch package yet (ROADMAP A.11)"
-        )
     if graph.landmarks or graph.landmark_edges:
         raise NotImplementedError(
             f"{path}: landmark records load into PoseLandmarkOptimizer, which "
@@ -264,17 +273,28 @@ def load_pose_graph(
     elif switchable_loops:
         optimizer_kwargs.setdefault("switch_penalty", 0.03)
 
-    opt = PoseGraphOptimizer(**optimizer_kwargs)
-    for vid in sorted(graph.vertices):
-        opt.set_pose(vid, _pose_from_vec7(graph.vertices[vid]))
+    if graph.dim == 3:
+        opt = PoseGraphOptimizer(**optimizer_kwargs)
+        for vid in sorted(graph.vertices):
+            opt.set_pose(vid, _pose_from_vec7(graph.vertices[vid]))
+    else:
+        opt = PoseGraphOptimizer2D(**optimizer_kwargs)
+        for vid in sorted(graph.vertices):
+            opt.set_pose(vid, graph.vertices[vid])
     for e in graph.edges:
         is_loop = switchable_loops and abs(e.j - e.i) >= loop_closure_gap
+        if unit_information:
+            sqrt_info = None
+        elif graph.dim == 3:
+            sqrt_info = _edge_sqrt_info_3d(e.information)
+        else:
+            sqrt_info = _edge_sqrt_info_2d(e.information, float(e.measurement[2]))
         opt.set_constraint(
             e.i,
             e.j,
-            _pose_from_vec7(e.measurement),
+            _pose_from_vec7(e.measurement) if graph.dim == 3 else e.measurement,
             constraint_type=ConstraintType.LOOP if is_loop else ConstraintType.ODOMETRY,
-            sqrt_info=None if unit_information else _edge_sqrt_info_3d(e.information),
+            sqrt_info=sqrt_info,
         )
     for vid in graph.fixed if graph.fixed else {min(graph.vertices)}:
         opt.set_pose_constant(vid)
@@ -339,37 +359,44 @@ def write_g2o(path: str, graph: G2oGraph) -> None:
             f.write(f"FIX {vid}\n")
 
 
-def save_pose_graph(path: str, optimizer: PoseGraphOptimizer, graph: Optional[G2oGraph] = None) -> None:
-    """Write an optimizer's CURRENT poses as a 3-D g2o file.
+def save_pose_graph(path: str, optimizer, graph: Optional[G2oGraph] = None) -> None:
+    """Write an optimizer's CURRENT poses as a g2o file (3-D for a
+    :class:`PoseGraphOptimizer`, 2-D for a :class:`PoseGraphOptimizer2D`).
 
     With ``graph`` (the G2oGraph it was loaded from), the original edges
     and information matrices are kept and only vertex estimates are
     replaced. Without it, edges are rebuilt from the optimizer's
     constraints with unit information."""
     if graph is not None:
-        if graph.dim != 3:
-            raise NotImplementedError("2-D g2o graphs are not ported yet (ROADMAP A.11)")
         out = G2oGraph(
-            dim=3,
+            dim=graph.dim,
             edges=graph.edges,
             fixed=set(graph.fixed),
             landmark_edges=graph.landmark_edges,
             landmarks=dict(graph.landmarks),
         )
         for vid in graph.vertices:
-            out.vertices[vid] = _vertex_vec(optimizer, vid)
+            out.vertices[vid] = _vertex_vec(optimizer, vid, graph.dim)
         write_g2o(path, out)
         return
-    out = G2oGraph(dim=3)
+    dim = 2 if isinstance(optimizer, PoseGraphOptimizer2D) else 3
+    out = G2oGraph(dim=dim)
     for vid in optimizer.pose_indices():
-        out.vertices[vid] = _vertex_vec(optimizer, vid)
+        out.vertices[vid] = _vertex_vec(optimizer, vid, dim)
     for c in optimizer.constraints():
-        rel = c["relative_pose"]
-        meas = np.concatenate([rel.translation, rel.quaternion()])
-        out.edges.append(G2oEdge(c["reference_index"], c["query_index"], meas, np.eye(6)))
+        if dim == 3:
+            rel = c["relative_pose"]
+            meas = np.concatenate([rel.translation, rel.quaternion()])
+            info = np.eye(6)
+        else:
+            meas = np.asarray(c["relative_xyt"], np.float64)
+            info = np.eye(3)
+        out.edges.append(G2oEdge(c["reference_index"], c["query_index"], meas, info))
     write_g2o(path, out)
 
 
-def _vertex_vec(optimizer: PoseGraphOptimizer, vid: int) -> np.ndarray:
-    pose = optimizer.get_pose(vid)
-    return np.concatenate([pose.translation, np_rotmat_to_quat(pose.rotation)])
+def _vertex_vec(optimizer, vid: int, dim: int) -> np.ndarray:
+    if dim == 3:
+        pose = optimizer.get_pose(vid)
+        return np.concatenate([pose.translation, np_rotmat_to_quat(pose.rotation)])
+    return np.asarray(optimizer.get_pose(vid), np.float64)

@@ -1,4 +1,15 @@
-from . import autodiff, batched, block_tridiag, linear, lm, manifolds, minimizers, pose_graph
+from . import (
+    autodiff,
+    batched,
+    block_tridiag,
+    graph_init,
+    linear,
+    lm,
+    manifolds,
+    minimizers,
+    multifrontal,
+    pose_graph,
+)
 from .batched import (
     finalize_solve_batch,
     solve_mahalanobis_batch,
@@ -15,16 +26,23 @@ from .minimizers import (
     PointToPlaneMinimizer,
     ReprojectionErrorMinimizer,
 )
-from .pose_graph import ConstraintType, PoseGraphOptimizer, select_solver
+from .pose_graph import (
+    ConstraintType,
+    PoseGraphOptimizer,
+    PoseGraphOptimizer2D,
+    select_solver,
+)
 
 __all__ = [
     "autodiff",
     "batched",
     "block_tridiag",
+    "graph_init",
     "linear",
     "lm",
     "manifolds",
     "minimizers",
+    "multifrontal",
     "pose_graph",
     "finalize_solve_batch",
     "solve_mahalanobis_batch",
@@ -41,5 +59,6 @@ __all__ = [
     "Summary",
     "ConstraintType",
     "PoseGraphOptimizer",
+    "PoseGraphOptimizer2D",
     "select_solver",
 ]

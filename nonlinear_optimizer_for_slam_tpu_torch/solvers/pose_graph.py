@@ -1,5 +1,5 @@
-"""SE(3) pose-graph optimizer (PyTorch port of the JAX package's
-``solvers/pose_graph.py``): batched relative-pose Gauss-Newton/LM.
+"""SE(3) and SE(2) pose-graph optimizers (PyTorch port of the JAX
+package's ``solvers/pose_graph.py``): batched relative-pose Gauss-Newton/LM.
 
 Implements what the reference's analytic pose-graph path left as a TODO
 stub (pose_graph_optimizer_analytic.cc:12-51), with the reference's Ceres
@@ -17,12 +17,18 @@ semantics kept deliberately (pose_graph_optimizer_ceres.cc:15-69):
 
 Every edge evaluates in one batch (closed-form 7x7 Jacobian blocks,
 ``ops/relative_pose.py``); the LM policy is the one ``solvers/lm`` loop.
-Four linear solvers share it: "dense" assembles the (7P+L)^2 normal
+Five linear solvers share it: "dense" assembles the (7P+L)^2 normal
 matrix, "tridiag" solves chain-dominated graphs by cyclic reduction and a
 Woodbury correction, "banded" solves loop-rich graphs by superblock
-cyclic reduction after a reverse Cuthill-McKee ordering, and "cg" is the
-matrix-free preconditioned CG path. "auto" picks among them
-(:func:`select_solver`).
+cyclic reduction after a reverse Cuthill-McKee ordering, "sparse" by the
+nested-dissection multifrontal Cholesky (``solvers/multifrontal.py``) for
+loop-rich graphs whose band is fat, and "cg" is the matrix-free
+preconditioned CG path. "auto" picks among them (:func:`select_solver`).
+
+``PoseGraphOptimizer2D`` is the SE(2) counterpart (x, y, theta poses, the
+g2o EDGE_SE2 factor with the same switchable loops) with the dense,
+banded, sparse and CG paths; ``initialize()`` on both optimizers runs the
+spanning-tree or chordal initializer of ``solvers/graph_init.py``.
 
 Every sum of per-edge contributions into per-pose rows that may see the
 same row twice is ``index_put_`` with ``accumulate=True``, which sums in
@@ -35,7 +41,7 @@ API mirrors the reference base class (pose_graph_optimizer.h:21-108).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,18 +55,17 @@ from ..ops.relative_pose import (
     PoseGraphEdges,
     _normalize_jacobian,
     _quat_left_matrix,
+    apply_sqrt_info,
     edge_residuals_and_jacobians,
     stack_sqrt_info,
 )
-from . import block_tridiag, lm
+from . import block_tridiag, lm, multifrontal
 
 Tensor = torch.Tensor
 
-# Not ported yet (ROADMAP A.11): named in every NotImplementedError.
-_UNPORTED = (
-    "is not ported to the PyTorch package yet (ROADMAP A.11: sparse "
-    "multifrontal, covariance, solve_batch, PoseGraphOptimizer2D, graph_init)"
-)
+# Not ported yet: named in each NotImplementedError.
+_COVARIANCE = "is not ported to the PyTorch package yet (ROADMAP A.11.2)"
+_SOLVE_BATCH = "is not ported to the PyTorch package yet (ROADMAP A.11.3)"
 
 
 class ConstraintType:
@@ -68,6 +73,29 @@ class ConstraintType:
 
     ODOMETRY = 0
     LOOP = 1
+
+
+def _expand_sqrt_info_2d(sqrt_info) -> Optional[np.ndarray]:
+    """(3,) = [x y theta] or full (3, 3) from None | scalar | (2,)
+    (trans, rot) | (3,) | (3, 3) matrix."""
+    if sqrt_info is None:
+        return None
+    a = np.asarray(sqrt_info, np.float64)
+    if a.ndim == 2:
+        if a.shape != (3, 3):
+            raise ValueError(f"matrix sqrt_info must be (3, 3); got {a.shape}")
+        return a.copy()
+    w = a.reshape(-1)
+    if w.size == 1:
+        return np.full(3, w[0])
+    if w.size == 2:
+        return np.array([w[0], w[0], w[1]])
+    if w.size == 3:
+        return w.copy()
+    raise ValueError(
+        f"sqrt_info must be a scalar, (2,) (translation, rotation), "
+        f"(3,) diagonal, or (3, 3) matrix; got shape {np.asarray(sqrt_info).shape}"
+    )
 
 
 def _expand_sqrt_info(sqrt_info) -> Optional[np.ndarray]:
@@ -170,10 +198,13 @@ def _loop_slot(is_loop: Tensor, L: int) -> Tensor:
 
 
 class _Graph:
-    """Per-solve constants shared by the four paths (loop slots, the loop
-    edges, the gauge masks) and the edge linearization."""
+    """Per-solve constants shared by the solve paths (loop slots, the loop
+    edges, the gauge masks) and the edge linearization. ``edges`` is a
+    :class:`PoseGraphEdges` (SE(3): pose parameters (P, 7) = position and
+    quaternion) or a :class:`PoseGraph2DEdges` (SE(2): (P, 3) = x, y,
+    theta)."""
 
-    def __init__(self, edges: PoseGraphEdges, free_mask: Tensor, P: int, L: int,
+    def __init__(self, edges, free_mask: Tensor, P: int, L: int,
                  switch_penalty: float, edge_loss):
         self.edges, self.P, self.L = edges, P, L
         self.switch_penalty, self.edge_loss = switch_penalty, edge_loss
@@ -189,21 +220,34 @@ class _Graph:
         self.free_ref = free_mask[self.ref_i]
         self.free_qry = free_mask[self.qry_i]
         self.fixed_p = (1.0 - free_mask)[:, None]
+        self.pose_rows = torch.cat([self.ref_i, self.qry_i])
 
     def per_switch(self, per_edge: Tensor) -> Tensor:
         """(E,) values of the loop edges, in slot order (L,)."""
         return per_edge[self.loop_ids]
 
-    def linearize(self, pos: Tensor, quat: Tensor, switches: Tensor):
+    def accumulate_pose(self, contrib_ref: Tensor, contrib_qry: Tensor) -> Tensor:
+        """Per-edge contributions at each edge's two poses summed per pose
+        (P, ...), by one ``index_put_(accumulate=True)``."""
+        out = contrib_ref.new_zeros((self.P,) + contrib_ref.shape[1:])
+        return _scatter_add(out, self.pose_rows, torch.cat([contrib_ref, contrib_qry]))
+
+    def linearize(self, pose_params: Tensor, switches: Tensor):
         """Residuals, gauge-masked Jacobian blocks and the cost, with the
         optional Ceres-style robust loss over each edge's squared norm."""
         if self.L:
             sw_full = switches[self.loop_slot]
         else:
             sw_full = torch.zeros(self.E, dtype=self.dtype, device=self.device)
-        r, J_ref, J_query, J_s = edge_residuals_and_jacobians(
-            pos, quat, sw_full, self.edges, self.switch_penalty
-        )
+        if isinstance(self.edges, PoseGraph2DEdges):
+            r, J_ref, J_query, J_s = se2_edge_residuals_and_jacobians(
+                pose_params, sw_full, self.edges, self.switch_penalty
+            )
+        else:
+            r, J_ref, J_query, J_s = edge_residuals_and_jacobians(
+                pose_params[:, :3], pose_params[:, 3:], sw_full, self.edges,
+                self.switch_penalty,
+            )
         # gauge fixing: fixed poses contribute no derivative columns
         J_ref = J_ref * self.free_ref[:, None, None]
         J_query = J_query * self.free_qry[:, None, None]
@@ -219,18 +263,17 @@ class _Graph:
             cost = torch.sum(r * r)
         return r, J_ref, J_query, J_s, cost
 
-    def split_quadratic(self, accumulate_pose):
-        """``eval_quadratic`` of the tridiag, banded and CG paths over
-        (pose params (P, 7), switches (L,)): the per-edge Jacobian blocks
-        and diag(J^T J) as the operator, never H, and g = (g_p, g_s), with
-        the per-pose sums by ``accumulate_pose(contrib_ref,
-        contrib_qry)``."""
+    def split_quadratic(self, accumulate_pose=None):
+        """``eval_quadratic`` of the tridiag, banded, sparse and CG paths
+        over (pose params (P, k), switches (L,)): the per-edge Jacobian
+        blocks and diag(J^T J) as the operator, never H, and g = (g_p,
+        g_s), with the per-pose sums by ``accumulate_pose(contrib_ref,
+        contrib_qry)`` (default :meth:`accumulate_pose`)."""
+        accumulate_pose = accumulate_pose or self.accumulate_pose
 
         def eval_quadratic(params):
             pose_params, switches = params
-            r, J_ref, J_query, J_s, cost = self.linearize(
-                pose_params[:, :3], pose_params[:, 3:], switches
-            )
+            r, J_ref, J_query, J_s, cost = self.linearize(pose_params, switches)
             g_p = accumulate_pose(_btv(J_ref, r), _btv(J_query, r))
             d_p = accumulate_pose(torch.sum(J_ref * J_ref, dim=1),
                                   torch.sum(J_query * J_query, dim=1))
@@ -240,37 +283,60 @@ class _Graph:
 
         return eval_quadratic
 
+    def eliminate_switches(self, J_a: Tensor, J_b: Tensor, J_s: Tensor, d_s: Tensor,
+                           g_s: Tensor, lam: Tensor, rows_ab: Tensor, b_p: Tensor):
+        """Exact damped-Schur elimination of each loop edge's switch (its
+        damped Schur complement is a rank-1 update of the edge's pose
+        blocks). Adds (A^T c) g_s / gamma to ``b_p`` at the rows
+        ``rows_ab`` in place and returns (1 / gamma per edge, 0 at non-loop
+        edges; g_s at each edge; A_a^T c; A_b^T c)."""
+        c = J_s
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        gamma = torch.sum(c * c, dim=1) + lam * d_s[self.loop_slot] + 1e-8
+        inv_gamma = torch.where(self.is_loop, 1.0 / gamma, zero)
+        Jac = _btv(J_a, c)  # (E, k) = A_a^T c
+        Jbc = _btv(J_b, c)
+        g_s_e = g_s[self.loop_slot]
+        coef = inv_gamma * g_s_e
+        _scatter_add(b_p, rows_ab, torch.cat([Jac * coef[:, None], Jbc * coef[:, None]]))
+        return inv_gamma, g_s_e, Jac, Jbc
 
-def _solve_split(eval_quadratic, solve_linear, free_mask, positions0, quaternions0,
-                 switches0, options):
-    """The LM loop over (pose params (P, 7), switches (L,)) with a
-    ``solve_linear`` step, shared by the tridiag, banded and CG paths."""
+    def back_substitute(self, J_a: Tensor, J_b: Tensor, J_s: Tensor, dp_a: Tensor,
+                        dp_b: Tensor, g_s_e: Tensor, inv_gamma: Tensor) -> Tensor:
+        """Exact switch back-substitution ds = (-g_s - c^T A dp) / gamma."""
+        v = _bmv(J_a, dp_a) + _bmv(J_b, dp_b)  # (E, r) = A_e dp
+        ds_e = (-g_s_e - torch.sum(J_s * v, dim=1)) * inv_gamma
+        return self.per_switch(ds_e)
+
+
+def _solve_split(eval_quadratic, solve_linear, free_mask, pose0, switches0, options):
+    """The LM loop over (pose params (P, k), switches (L,)) with a
+    ``solve_linear`` step, shared by the tridiag, banded, sparse and CG
+    paths. Returns (pose params, switches, summary)."""
 
     def retract(params, delta):
         pose_params, switches = params
         dp, ds = delta
         return (pose_params + dp * free_mask[:, None], switches + ds)
 
-    pose0 = torch.cat([positions0, quaternions0], dim=1)
     (pose_params, switches), summary = lm.solve(
         eval_quadratic, retract, (pose0, switches0), options, solve_linear=solve_linear
     )
-    return pose_params[:, :3], pose_params[:, 3:], switches, summary
+    return pose_params, switches, summary
 
 
 # ---------------------------------------------------------------------------
-# "dense": the (7P+L)^2 normal matrix
+# "dense": the (kP+L)^2 normal matrix
 # ---------------------------------------------------------------------------
 
 
 def _pose_graph_solve(
-    positions0,  # (P, 3)
-    quaternions0,  # (P, 4)
+    pose0,  # (P, k): [position (3), quaternion (4)] per pose, or (x, y, theta)
     switches0,  # (L,)
-    edges: PoseGraphEdges,
+    edges,  # PoseGraphEdges or PoseGraph2DEdges
     free_mask,  # (P,) 1.0 = free pose, 0.0 = constant (gauge-fixed)
     switch_penalty: float,
-    edge_loss,  # optional LossFunction robustifying each 7-row edge block
+    edge_loss,  # optional LossFunction robustifying each edge block
     num_poses: int,
     num_loops: int,
     options: Options,
@@ -278,59 +344,58 @@ def _pose_graph_solve(
     prior_mean=None,  # (B, 7) prior linearization point [p_lin, q_lin(unit)]
     prior_sel=None,  # (B,) pose indices the prior couples
     prior_offset=None,  # (6B,) residual offset c: r_p = S dphi(x) + c
+    floor: float = 1e-8,  # Tikhonov floor on every diagonal entry
 ):
-    """Dense direct path: block assembly of the (7P+L)^2 normal matrix.
-    Each edge adds four 7x7 pose blocks and, for loops, a switch row and
-    column at its block coordinates.
+    """Dense direct path: block assembly of the (kP+L)^2 normal matrix
+    (k = 7 for SE(3), 3 for SE(2)). Each edge adds four k x k pose blocks
+    and, for loops, a switch row and column at its block coordinates.
 
-    Parameter layout: [pose_0 (3 pos + 4 quat), ..., pose_{P-1} | switches]
-    (pose-interleaved, so an edge's columns are two contiguous 7-spans)."""
+    Parameter layout: [pose_0, ..., pose_{P-1} | switches]
+    (pose-interleaved, so an edge's columns are two contiguous k-spans).
+    Returns (pose params (P, k), switches, summary)."""
     P, L = num_poses, num_loops
-    dim = 7 * P + L
+    k = pose0.shape[1]
+    dim = k * P + L
     graph = _Graph(edges, free_mask, P, L, switch_penalty, edge_loss)
     dtype, device = graph.dtype, graph.device
     E = graph.E
 
     col_mask = torch.cat(
-        [free_mask.repeat_interleave(7), torch.ones(L, dtype=dtype, device=device)]
+        [free_mask.repeat_interleave(k), torch.ones(L, dtype=dtype, device=device)]
     )
-    sevens = torch.arange(7, device=device)
-    rows_ref = 7 * graph.ref_i[:, None] + sevens  # (E, 7)
-    rows_qry = 7 * graph.qry_i[:, None] + sevens
-    col_sw = 7 * P + graph.loop_slot  # (E,)
+    ks = torch.arange(k, device=device)
+    rows_ref = k * graph.ref_i[:, None] + ks  # (E, k)
+    rows_qry = k * graph.qry_i[:, None] + ks
+    col_sw = k * P + graph.loop_slot  # (E,)
     # the block coordinates of every H entry an edge adds, flattened in
     # the order ref-ref, ref-qry, qry-ref, qry-qry (then the switch terms)
     blk_r = [rows_ref[:, :, None], rows_ref[:, :, None], rows_qry[:, :, None], rows_qry[:, :, None]]
     blk_c = [rows_ref[:, None, :], rows_qry[:, None, :], rows_ref[:, None, :], rows_qry[:, None, :]]
-    h_rows = [r.expand(E, 7, 7).reshape(-1) for r in blk_r]
-    h_cols = [c.expand(E, 7, 7).reshape(-1) for c in blk_c]
+    h_rows = [r.expand(E, k, k).reshape(-1) for r in blk_r]
+    h_cols = [c.expand(E, k, k).reshape(-1) for c in blk_c]
     if L > 0:
-        sw7 = col_sw[:, None].expand(E, 7)
-        h_rows += [rows_ref.reshape(-1), sw7.reshape(-1), rows_qry.reshape(-1),
-                   sw7.reshape(-1), col_sw]
-        h_cols += [sw7.reshape(-1), rows_ref.reshape(-1), sw7.reshape(-1),
+        swk = col_sw[:, None].expand(E, k)
+        h_rows += [rows_ref.reshape(-1), swk.reshape(-1), rows_qry.reshape(-1),
+                   swk.reshape(-1), col_sw]
+        h_cols += [swk.reshape(-1), rows_ref.reshape(-1), swk.reshape(-1),
                    rows_qry.reshape(-1), col_sw]
     h_rows, h_cols = torch.cat(h_rows), torch.cat(h_cols)
     g_rows = torch.cat([rows_ref.reshape(-1), rows_qry.reshape(-1)] + ([col_sw] if L else []))
 
     if prior_sqrt is not None:
         B = prior_sel.shape[0]
-        prior_rows = (7 * prior_sel[:, None] + sevens).reshape(-1)
+        prior_rows = (7 * prior_sel[:, None] + ks).reshape(-1)
         eye3 = torch.eye(3, dtype=dtype, device=device)
-
-    def unflatten(x):
-        pose = x[: 7 * P].reshape(P, 7)
-        return pose[:, :3], pose[:, 3:], x[7 * P:]
 
     def quad(params):
         (x,) = params
-        pos, quat, sw = unflatten(x)
-        r, J_ref, J_query, J_s, cost = graph.linearize(pos, quat, sw)
+        pose = x[: k * P].reshape(P, k)
+        r, J_ref, J_query, J_s, cost = graph.linearize(pose, x[k * P:])
         B_rq = J_ref.mT @ J_query
         h_vals = [J_ref.mT @ J_ref, B_rq, B_rq.mT, J_query.mT @ J_query]
         g_vals = [_btv(J_ref, r), _btv(J_query, r)]
         if L > 0:
-            b_rs = _btv(J_ref, J_s)  # (E, 7)
+            b_rs = _btv(J_ref, J_s)  # (E, k)
             b_qs = _btv(J_query, J_s)
             h_vals += [b_rs, b_rs, b_qs, b_qs, torch.sum(J_s * J_s, dim=1)]
             g_vals.append(torch.sum(J_s * r, dim=1))
@@ -346,8 +411,8 @@ def _pose_graph_solve(
             # (the fixed-lag smoother's marginalization product); tangent,
             # not raw-ambient, and an affine offset, not a mean shift (see
             # the JAX package's _pose_graph_solve for why).
-            pb = pos[prior_sel]
-            qb = quat[prior_sel]
+            pb = pose[prior_sel, :3]
+            qb = pose[prior_sel, 3:]
             q_lin_conj = lie.quat_conjugate(prior_mean[:, 3:])
             A = lie.quat_multiply(q_lin_conj, lie.quat_normalize(qb))
             dphi = torch.cat([pb - prior_mean[:, :3], 2.0 * A[:, 1:]], dim=1)
@@ -371,7 +436,7 @@ def _pose_graph_solve(
         # quaternion w-derivative vanishes and the multiplicatively damped
         # system is singular; Ceres clamps its damping diagonal
         # (min_diagonal = 1e-6) for the same structure
-        diagonal.add_(1e-8)
+        diagonal.add_(floor)
         return H, g, cost
 
     def retract(params, delta):
@@ -379,10 +444,8 @@ def _pose_graph_solve(
         (x,) = params
         return (x + delta * col_mask,)
 
-    pose0 = torch.cat([positions0, quaternions0], dim=1).reshape(-1)
-    (x,), summary = lm.solve(quad, retract, (torch.cat([pose0, switches0]),), options)
-    pos, quat, sw = unflatten(x)
-    return pos, quat, sw, summary
+    (x,), summary = lm.solve(quad, retract, (torch.cat([pose0.reshape(-1), switches0]),), options)
+    return x[: k * P].reshape(P, k), x[k * P:], summary
 
 
 # ---------------------------------------------------------------------------
@@ -428,54 +491,51 @@ def _pcg(matvec, b, precond, maxiter: int, tol: float = 1e-5):
 
 
 def _pose_graph_solve_cg(
-    positions0, quaternions0, switches0, edges: PoseGraphEdges, free_mask,
-    switch_penalty: float, edge_loss, num_poses: int, num_loops: int,
-    options: Options, cg_iterations: int, cg_precond: str = "chain",
+    pose0, switches0, edges, free_mask, switch_penalty: float, edge_loss,
+    num_poses: int, num_loops: int, options: Options, cg_iterations: int,
+    cg_precond: str = "chain",
 ):
     """Matrix-free LM: the ``lm.solve`` policy loop with a preconditioned-CG
     linear step. ``eval_quadratic`` returns the per-edge Jacobian blocks as
     the operator (H is never formed) and ``solve_linear`` runs the damped
-    matvec CG.
+    matvec CG. Pose blocks are k = 7 (SE(3)) or 3 (SE(2)) wide.
 
     ``cg_precond``: "chain" (default) is the damped block-tridiagonal part
-    of H (per-pose 7x7 blocks plus the coupling blocks of consecutive-pose
-    edges), factored by cyclic reduction once per LM step and applied per
-    CG iteration; exact up to the loop off-diagonals. "jacobi" is the
-    per-pose damped 7x7 diagonal blocks only."""
+    of H (per-pose k x k blocks plus the coupling blocks of
+    consecutive-pose edges), factored by cyclic reduction once per LM step
+    and applied per CG iteration; exact up to the loop off-diagonals.
+    "jacobi" is the per-pose damped k x k diagonal blocks only."""
     P, L = num_poses, num_loops
+    k = pose0.shape[1]
     graph = _Graph(edges, free_mask, P, L, switch_penalty, edge_loss)
     dtype, device = graph.dtype, graph.device
     ref_i, qry_i = graph.ref_i, graph.qry_i
-    pose_rows = torch.cat([ref_i, qry_i])
-    eye7 = torch.eye(7, dtype=dtype, device=device)
+    accumulate_pose = graph.accumulate_pose
+    eye_k = torch.eye(k, dtype=dtype, device=device)
     if cg_precond == "chain":
         chain = torch.nonzero((torch.abs(ref_i - qry_i) == 1) & (edges.mask > 0))[:, 0]
         chain_lo = torch.minimum(ref_i, qry_i)[chain]
         chain_fwd = (ref_i < qry_i)[chain][:, None, None]
 
-    def accumulate_pose(contrib_ref, contrib_qry):
-        out = torch.zeros((P,) + contrib_ref.shape[1:], dtype=dtype, device=device)
-        return _scatter_add(out, pose_rows, torch.cat([contrib_ref, contrib_qry]))
-
     def scatter_jt(J_ref, J_query, J_s, y):
-        """J^T y as ((P, 7), (L,))."""
+        """J^T y as ((P, k), (L,))."""
         gp = accumulate_pose(_btv(J_ref, y), _btv(J_query, y))
         return gp, graph.per_switch(torch.sum(J_s * y, dim=1))
 
-    split_quadratic = graph.split_quadratic(accumulate_pose)
+    split_quadratic = graph.split_quadratic()
 
     def eval_quadratic(params):
         (J_ref, J_query, J_s, d_p, d_s), g, cost = split_quadratic(params)
-        # and the per-pose 7x7 J^T J blocks of the preconditioner
+        # and the per-pose k x k J^T J blocks of the preconditioner
         B_p = accumulate_pose(J_ref.mT @ J_ref, J_query.mT @ J_query)
         O_chain = None
         if cg_precond == "chain":
             # off-diagonal H blocks of consecutive-pose edges at slot
-            # min(ref, qry), oriented so O[k] = H[k, k+1]
+            # min(ref, qry), oriented so O[i] = H[i, i+1]
             cross = J_ref[chain].mT @ J_query[chain]
             cross = torch.where(chain_fwd, cross, cross.mT)
             O_chain = _scatter_add(
-                torch.zeros((P, 7, 7), dtype=dtype, device=device), chain_lo, cross
+                torch.zeros((P, k, k), dtype=dtype, device=device), chain_lo, cross
             )
         return (J_ref, J_query, J_s, d_p, d_s, B_p, O_chain), g, cost
 
@@ -495,11 +555,11 @@ def _pose_graph_solve_cg(
             hs = hs + lam * d_s * vs + 1e-8 * vs
             return hp, hs
 
-        # block-Jacobi part: the per-pose damped 7x7 J^T J blocks (exactly
+        # block-Jacobi part: the per-pose damped k x k J^T J blocks (exactly
         # the pose diagonal of the damped H the matvec applies); switch
         # variables are diagonal in H
-        dvec = lam * d_p + fixed_p + 1e-8  # (P, 7) damping diagonal
-        Bp = B_p + eye7 * dvec[:, None, :]
+        dvec = lam * d_p + fixed_p + 1e-8  # (P, k) damping diagonal
+        Bp = B_p + eye_k * dvec[:, None, :]
         pre_s = (1.0 + lam) * d_s + 1e-8
 
         if cg_precond == "chain":
@@ -508,7 +568,7 @@ def _pose_graph_solve_cg(
             # direction and the tridiagonal factorization would propagate
             # that across poses; M only has to be PD
             floor = 1e-3 * torch.amax(d_p, dim=1, keepdim=True) + 1e-8
-            fact = block_tridiag.factor(Bp + eye7 * floor[:, :, None], O_chain)
+            fact = block_tridiag.factor(Bp + eye_k * floor[:, :, None], O_chain)
 
             def precond(v):
                 return block_tridiag.solve_factored(fact, v[0]), v[1] / pre_s
@@ -520,8 +580,7 @@ def _pose_graph_solve_cg(
 
         return _pcg(matvec, (-g_p, -g_s), precond, cg_iterations)
 
-    return _solve_split(eval_quadratic, solve_linear, free_mask, positions0,
-                        quaternions0, switches0, options)
+    return _solve_split(eval_quadratic, solve_linear, free_mask, pose0, switches0, options)
 
 
 # ---------------------------------------------------------------------------
@@ -537,7 +596,7 @@ _CORR_CHUNK = 16
 
 
 def _pose_graph_solve_tridiag(
-    positions0, quaternions0, switches0,
+    pose0, switches0,
     edges: PoseGraphEdges,  # REORDERED: chain edges (by lo) first, then corr
     free_mask, switch_penalty: float, edge_loss,
     chain_lo,  # (Ec,) min(ref, qry) per chain edge
@@ -737,8 +796,7 @@ def _pose_graph_solve_tridiag(
             ds = torch.zeros(0, dtype=dtype, device=device)
         return dp, ds
 
-    return _solve_split(eval_quadratic, solve_linear, free_mask, positions0,
-                        quaternions0, switches0, options)
+    return _solve_split(eval_quadratic, solve_linear, free_mask, pose0, switches0, options)
 
 
 # ---------------------------------------------------------------------------
@@ -790,10 +848,9 @@ def _scatter_banded_blocks(P: int, d: int, s: int, lo, hi, B_ll, B_hh, B_hl, dia
 
 
 def _pose_graph_solve_banded(
-    positions0,  # (P, 3) in RCM-PERMUTED order
-    quaternions0,  # (P, 4) same order
+    pose0,  # (P, k) in RCM-PERMUTED order
     switches0,  # (L,)
-    edges: PoseGraphEdges,  # endpoint indices in PERMUTED order
+    edges,  # endpoint indices in PERMUTED order
     free_mask,  # (P,) permuted
     switch_penalty: float, edge_loss, num_poses: int, num_loops: int,
     super_size: int,  # s >= block bandwidth of the permuted graph
@@ -805,11 +862,11 @@ def _pose_graph_solve_banded(
     1. Host symbolic phase, once per topology: a reverse Cuthill-McKee
        ordering bounds the block bandwidth b = max |perm_i - perm_j|.
     2. Device numeric phase, per LM iteration: the banded system packs
-       into K = ceil(P/s) superblocks of s >= b poses (7s x 7s panels).
-       Every edge couples the same or adjacent superblocks, so the system
-       is block-tridiagonal at superblock granularity and
-       ``block_tridiag`` factors it in log2(K) levels of batched panel
-       products.
+       into K = ceil(P/s) superblocks of s >= b poses (ks x ks panels, k =
+       7 for SE(3) and 3 for SE(2)). Every edge couples the same or
+       adjacent superblocks, so the system is block-tridiagonal at
+       superblock granularity and ``block_tridiag`` factors it in log2(K)
+       levels of batched panel products.
 
     Loop switches are eliminated exactly per edge (their damped Schur
     complement is a rank-1 update inside the band) and recovered by
@@ -818,11 +875,11 @@ def _pose_graph_solve_banded(
     with two steps of iterative refinement (a TPU measure) is not
     carried."""
     P, L = num_poses, num_loops
+    k = pose0.shape[1]
     s = super_size
     graph = _Graph(edges, free_mask, P, L, switch_penalty, edge_loss)
     dtype, device = graph.dtype, graph.device
     ref_i, qry_i = graph.ref_i, graph.qry_i
-    pose_rows = torch.cat([ref_i, qry_i])
 
     # lo/hi endpoint split (lo = smaller permuted index)
     swap = (qry_i < ref_i)[:, None, None]
@@ -830,16 +887,12 @@ def _pose_graph_solve_banded(
     hi_i = torch.maximum(ref_i, qry_i)
     lohi_rows = torch.cat([lo_i, hi_i])
 
-    def accumulate_pose(contrib_ref, contrib_qry):
-        out = torch.zeros((P,) + contrib_ref.shape[1:], dtype=dtype, device=device)
-        return _scatter_add(out, pose_rows, torch.cat([contrib_ref, contrib_qry]))
-
-    eval_quadratic = graph.split_quadratic(accumulate_pose)
+    eval_quadratic = graph.split_quadratic()
 
     def solve_linear(H_rep, g, lam):
         J_ref, J_query, J_s, d_p, d_s = H_rep
         g_p, g_s = g
-        J_lo = torch.where(swap, J_query, J_ref)  # (E, 7, 7)
+        J_lo = torch.where(swap, J_query, J_ref)  # (E, r, k)
         J_hi = torch.where(swap, J_ref, J_query)
         B_ll = J_lo.mT @ J_lo
         B_hh = J_hi.mT @ J_hi
@@ -849,15 +902,9 @@ def _pose_graph_solve_banded(
         if L > 0:
             # exact damped-Schur elimination of each loop edge's switch:
             # H_pp -= (A^T c)(A^T c)^T / gamma,  b_p += (A^T c) g_s / gamma
-            c = J_s
-            zero = torch.zeros((), dtype=dtype, device=device)
-            gamma = torch.sum(c * c, dim=1) + lam * d_s[graph.loop_slot] + 1e-8
-            inv_gamma = torch.where(graph.is_loop, 1.0 / gamma, zero)
-            Jlc = _btv(J_lo, c)  # (E, 7) = A_lo^T c
-            Jhc = _btv(J_hi, c)
-            g_s_e = g_s[graph.loop_slot]
-            coef = inv_gamma * g_s_e
-            _scatter_add(b_p, lohi_rows, torch.cat([Jlc * coef[:, None], Jhc * coef[:, None]]))
+            inv_gamma, g_s_e, Jlc, Jhc = graph.eliminate_switches(
+                J_lo, J_hi, J_s, d_s, g_s, lam, lohi_rows, b_p
+            )
             ig = inv_gamma[:, None, None]
             B_ll = B_ll - ig * (Jlc[:, :, None] * Jlc[:, None, :])
             B_hh = B_hh - ig * (Jhc[:, :, None] * Jhc[:, None, :])
@@ -865,24 +912,85 @@ def _pose_graph_solve_banded(
 
         # damping diagonal (reference policy: lam * diag(H), gauge fixing
         # and the rank-deficiency floor); padding poses get 1.0
-        dvec = lam * d_p + graph.fixed_p + 1e-8  # (P, 7)
-        K, m, D, O = _scatter_banded_blocks(P, 7, s, lo_i, hi_i, B_ll, B_hh, B_hl, dvec)
-        rhs = torch.cat([b_p, b_p.new_zeros((K * s - P, 7))]).reshape(K, m)
+        dvec = lam * d_p + graph.fixed_p + 1e-8  # (P, k)
+        K, m, D, O = _scatter_banded_blocks(P, k, s, lo_i, hi_i, B_ll, B_hh, B_hl, dvec)
+        rhs = torch.cat([b_p, b_p.new_zeros((K * s - P, k))]).reshape(K, m)
         # dense tail in superblock rows: stop once it is ~4k wide
         x = block_tridiag.solve(D, O, rhs, dense_cutoff=max(1, 4096 // m))
-        dp = x.reshape(K * s, 7)[:P]
+        dp = x.reshape(K * s, k)[:P]
 
-        # exact switch back-substitution ds = (-g_s - c^T A dp) / gamma
         if L > 0:
-            v = _bmv(J_lo, dp[lo_i]) + _bmv(J_hi, dp[hi_i])  # (E, 7) = A_e dp
-            ds_e = (-g_s_e - torch.sum(c * v, dim=1)) * inv_gamma
-            ds = graph.per_switch(ds_e)
+            ds = graph.back_substitute(J_lo, J_hi, J_s, dp[lo_i], dp[hi_i], g_s_e, inv_gamma)
         else:
             ds = torch.zeros(0, dtype=dtype, device=device)
         return dp, ds
 
-    return _solve_split(eval_quadratic, solve_linear, free_mask, positions0,
-                        quaternions0, switches0, options)
+    return _solve_split(eval_quadratic, solve_linear, free_mask, pose0, switches0, options)
+
+
+# ---------------------------------------------------------------------------
+# "sparse": nested-dissection multifrontal Cholesky
+# ---------------------------------------------------------------------------
+
+
+def _pose_graph_solve_sparse(
+    pose0,  # (P, k) registry order (no permutation: the plan owns it)
+    switches0,  # (L,)
+    edges,  # PoseGraphEdges or PoseGraph2DEdges
+    free_mask,  # (P,)
+    switch_penalty: float, edge_loss, num_poses: int, num_loops: int,
+    plan: multifrontal.Plan,  # from PoseGraphOptimizer._flatten_sparse
+    options: Options,
+):
+    """Direct LM by nested-dissection multifrontal block-sparse Cholesky
+    (``solvers/multifrontal.py``): the solver class for loop-rich
+    fat-bandwidth graphs (Olson's Manhattan worlds), where every RCM
+    ordering still couples across the arena and banded superblocks go
+    near-dense, while nested dissection keeps O(P^{3/2}) with
+    sqrt(P)-sized separator fronts.
+
+    The eval_quadratic, the LM policy and the exact per-edge switch
+    elimination are the banded path's (the damped Schur complement of a
+    loop switch is a rank-1 update of its edge's blocks, which stay inside
+    the sparsity pattern); only the linear solver differs. The fronts
+    factor in the solve's own dtype (see ``multifrontal.solve``)."""
+    P, L = num_poses, num_loops
+    graph = _Graph(edges, free_mask, P, L, switch_penalty, edge_loss)
+    dtype, device = graph.dtype, graph.device
+    ref_i, qry_i = graph.ref_i, graph.qry_i
+
+    eval_quadratic = graph.split_quadratic()
+
+    def solve_linear(H_rep, g, lam):
+        J_ref, J_query, J_s, d_p, d_s = H_rep
+        g_p, g_s = g
+        # per-edge blocks in (ref, query) = (a, b) convention
+        B_aa = J_ref.mT @ J_ref
+        B_bb = J_query.mT @ J_query
+        B_ab = J_ref.mT @ J_query
+        b_p = -g_p
+
+        if L > 0:
+            # exact damped-Schur elimination of each loop edge's switch
+            # (rank 1 per edge: the same algebra as the banded path)
+            inv_gamma, g_s_e, Jac, Jbc = graph.eliminate_switches(
+                J_ref, J_query, J_s, d_s, g_s, lam, graph.pose_rows, b_p
+            )
+            ig = inv_gamma[:, None, None]
+            B_aa = B_aa - ig * (Jac[:, :, None] * Jac[:, None, :])
+            B_bb = B_bb - ig * (Jbc[:, :, None] * Jbc[:, None, :])
+            B_ab = B_ab - ig * (Jac[:, :, None] * Jbc[:, None, :])
+
+        dvec = lam * d_p + graph.fixed_p + 1e-8  # damping + gauge + floor
+        dp = multifrontal.solve(plan, ref_i, qry_i, B_aa, B_bb, B_ab, dvec, b_p)
+
+        if L > 0:
+            ds = graph.back_substitute(J_ref, J_query, J_s, dp[ref_i], dp[qry_i], g_s_e, inv_gamma)
+        else:
+            ds = torch.zeros(0, dtype=dtype, device=device)
+        return dp, ds
+
+    return _solve_split(eval_quadratic, solve_linear, free_mask, pose0, switches0, options)
 
 
 # ---------------------------------------------------------------------------
@@ -942,7 +1050,7 @@ def select_solver(
              t_sparse ~ 10 + 1.6e-3 E + sparse_flops / 1.5e8
 
          (fitted on the JAX package's reference chip; retuning them for
-         the H100 is open work, ROADMAP A.11);
+         the H100 is open work, ROADMAP A.11.6);
       'cg' when both direct forms are infeasible.
 
     ``plan_fn()`` builds the multifrontal plan and may raise ValueError to
@@ -995,14 +1103,6 @@ def select_solver(
     return "cg", info
 
 
-def _no_sparse_plan():
-    raise NotImplementedError(
-        "solver='auto' would consult the nested-dissection plan of the "
-        f"sparse multifrontal solver, which {_UNPORTED}; pass solver="
-        "'banded' or 'cg' explicitly"
-    )
-
-
 # ---------------------------------------------------------------------------
 # the optimizer
 # ---------------------------------------------------------------------------
@@ -1034,9 +1134,11 @@ class PoseGraphOptimizer:
         the (7P+L)^2 normal matrix; "tridiag" is cyclic reduction plus a
         Woodbury correction for chain-dominated graphs; "banded" is RCM +
         superblock cyclic reduction for loop-rich graphs with a moderate
-        reordered bandwidth; "cg" is matrix-free preconditioned CG
+        reordered bandwidth; "sparse" is the nested-dissection
+        multifrontal Cholesky (``solvers/multifrontal.py``) for loop-rich
+        graphs whose band is fat; "cg" is matrix-free preconditioned CG
         (``cg_iterations`` per LM step, ``cg_precond`` "chain" or
-        "jacobi"). "sparse" and ``mesh=`` are not ported yet.
+        "jacobi"). ``mesh=`` is not ported yet (ROADMAP A.8).
 
         ``edge_loss``: optional robust loss (e.g. ``HuberLoss``) over each
         edge block's squared residual norm, Ceres-style.
@@ -1047,8 +1149,6 @@ class PoseGraphOptimizer:
             raise ValueError(f"unknown solver {solver!r}")
         if cg_precond not in ("chain", "jacobi"):
             raise ValueError(f"unknown cg_precond {cg_precond!r}")
-        if solver == "sparse":
-            raise NotImplementedError(f"solver='sparse' {_UNPORTED}")
         if mesh is not None:
             raise NotImplementedError(
                 "PoseGraphOptimizer(mesh=) is not ported to the PyTorch "
@@ -1263,6 +1363,25 @@ class PoseGraphOptimizer:
         )
         return flat["banded"]
 
+    def _flatten_sparse(self, flat: dict, positions: np.ndarray) -> dict:
+        """Host symbolic phase of the nested-dissection multifrontal
+        solver, cached per topology: separator tree and index maps
+        (``solvers/multifrontal.py``). Pose positions seed the geometric
+        median cuts, the natural dissection oracle for SLAM graphs. The
+        plan's index maps go to the device once, on the first solve."""
+        if flat.get("sparse") is not None:
+            return flat["sparse"]
+        plan = multifrontal.symbolic(
+            flat["P"],
+            flat["ref_idx"].astype(np.int64),
+            flat["query_idx"].astype(np.int64),
+            d=7,
+            coords=np.asarray(positions, np.float64),
+            leaf_size=16,
+        )
+        flat["sparse"] = dict(plan=plan)
+        return flat["sparse"]
+
     def _rcm_cached(self, flat: dict):
         """(perm, inv, bandwidth) of the RCM ordering, cached on the
         topology cache (shared by selection and the banded phase)."""
@@ -1298,15 +1417,82 @@ class PoseGraphOptimizer:
         self._dirty_poses.clear()
         return self._packed_poses
 
-    # -- not ported yet -------------------------------------------------------
-    def initialize(self, *args, **kwargs) -> None:
-        raise NotImplementedError(f"PoseGraphOptimizer.initialize (graph_init) {_UNPORTED}")
+    # -- initialization ------------------------------------------------------
+    def initialize(
+        self,
+        method: str = "chordal",
+        include_loops: bool = True,
+        cg_iterations: int = 300,
+        init_dtype: torch.dtype = torch.float32,
+    ) -> None:
+        """Replace the non-constant pose estimates with an initialization
+        computed from the relative-pose measurements (the registry's
+        current values are ignored except at anchors).
 
+        ``method="spanning_tree"`` composes measurements along a BFS tree
+        from the anchors (odometry edges preferred); ``"chordal"`` solves
+        the rotation-averaging chordal relaxation and a translation
+        Laplacian by preconditioned CG on the optimizer's device (see
+        ``solvers/graph_init.py``).
+
+        ``include_loops=False`` initializes from odometry edges only,
+        robust when loop measurements may contain outliers (chordal
+        averaging has no switch variables; a wrong loop bends the whole
+        init). Anchors: the ``set_pose_constant`` poses, else the lowest
+        pose index at its current registry value.
+
+        ``init_dtype``: precision of the chordal CG solves. float32 is the
+        JAX package's default, chosen there for its chip's emulated
+        float64; the initializer's float32 residual floor lies deep inside
+        LM's basin. Pass torch.float64 for a float64 initialization."""
+        from . import graph_init
+
+        flat = self._flatten()
+        indices, index_of = flat["indices"], flat["index_of"]
+        P = flat["P"]
+        ref_idx, query_idx = flat["ref_idx"], flat["query_idx"]
+        rel_t, rel_q = flat["rel_t"], flat["rel_q"]
+        is_loop = flat["is_loop"]
+
+        if not include_loops:
+            keep = is_loop == 0.0
+            ref_idx, query_idx = ref_idx[keep], query_idx[keep]
+            rel_t, rel_q = rel_t[keep], rel_q[keep]
+            is_loop = is_loop[keep]
+
+        anchor_ids = sorted(self._constant) or [indices[0]]
+        anchors = {}
+        for pi in anchor_ids:
+            p = self.get_pose(pi)
+            anchors[index_of[pi]] = (p.rotation, p.translation)
+
+        if method == "spanning_tree":
+            t, q = graph_init.spanning_tree_init(
+                ref_idx, query_idx, rel_q, rel_t, P, anchors, edge_priority=is_loop,
+            )
+        elif method == "chordal":
+            t, q = graph_init.chordal_init(
+                ref_idx, query_idx, rel_q, rel_t, P, anchors,
+                cg_iterations=cg_iterations, dtype=init_dtype, device=self.device,
+            )
+        else:
+            raise ValueError(
+                f"unknown initialization method {method!r} "
+                "(spanning_tree | chordal)"
+            )
+
+        for pi in indices:
+            if pi in self._constant:
+                continue
+            i = index_of[pi]
+            self.set_pose(pi, Pose(np_quat_to_rotmat(q[i]), t[i]))
+
+    # -- not ported yet -------------------------------------------------------
     def covariance(self, *args, **kwargs):
-        raise NotImplementedError(f"PoseGraphOptimizer.covariance {_UNPORTED}")
+        raise NotImplementedError(f"PoseGraphOptimizer.covariance {_COVARIANCE}")
 
     def solve_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"PoseGraphOptimizer.solve_batch {_UNPORTED}")
+        raise NotImplementedError(f"PoseGraphOptimizer.solve_batch {_SOLVE_BATCH}")
 
     # -- solve ---------------------------------------------------------------
     def solve(self, options: Optional[Options] = None) -> Tuple[lm.Summary, np.ndarray]:
@@ -1351,42 +1537,47 @@ class PoseGraphOptimizer:
             else:
                 solver, self.last_selection = select_solver(
                     P, flat["ref_idx"], flat["query_idx"], flat["is_loop"], 7,
-                    plan_fn=_no_sparse_plan,
+                    plan_fn=lambda: self._flatten_sparse(flat, positions)["plan"],
                     bandwidth=self._rcm_cached(flat)[2],
                 )
         self.last_solver_choice = solver
 
         common = (self.switch_penalty, self.edge_loss)
-        if solver == "banded":
+        pose_np = np.concatenate([positions, quaternions], axis=1)
+        pose0 = tensor(pose_np)
+        if solver == "sparse":
+            sp = self._flatten_sparse(flat, positions)
+            pose, sw, summary = _pose_graph_solve_sparse(
+                pose0, switches0, flat["edges_dev"], tensor(free), *common, P, L,
+                sp["plan"], options,
+            )
+        elif solver == "banded":
             bd = self._flatten_banded(flat)
             perm = bd["perm"]
-            pos_p, quat_p, sw, summary = _pose_graph_solve_banded(
-                tensor(positions[perm]), tensor(quaternions[perm]), switches0,
-                bd["edges_p"], tensor(free[perm]), *common, P, L,
-                bd["super_size"], options,
+            pose_p, sw, summary = _pose_graph_solve_banded(
+                tensor(pose_np[perm]), switches0, bd["edges_p"],
+                tensor(free[perm]), *common, P, L, bd["super_size"], options,
             )
             # un-permute back to registry order on the device
-            inv = torch.as_tensor(bd["inv"], device=dev)
-            pos, quat = pos_p[inv], quat_p[inv]
+            pose = pose_p[torch.as_tensor(bd["inv"], device=dev)]
         elif solver == "tridiag":
             td = self._flatten_tridiag(flat)
-            pos, quat, sw, summary = _pose_graph_solve_tridiag(
-                tensor(positions), tensor(quaternions), switches0, td["edges_r"],
-                tensor(free), *common, td["chain_lo"], td["chain_forward"],
-                td["num_chain"], P, L, options, td["chain_seq"],
+            pose, sw, summary = _pose_graph_solve_tridiag(
+                pose0, switches0, td["edges_r"], tensor(free), *common,
+                td["chain_lo"], td["chain_forward"], td["num_chain"], P, L, options,
+                td["chain_seq"],
             )
         elif solver == "cg":
-            pos, quat, sw, summary = _pose_graph_solve_cg(
-                tensor(positions), tensor(quaternions), switches0, flat["edges_dev"],
-                tensor(free), *common, P, L, options, self.cg_iterations,
-                self.cg_precond,
+            pose, sw, summary = _pose_graph_solve_cg(
+                pose0, switches0, flat["edges_dev"], tensor(free), *common, P, L,
+                options, self.cg_iterations, self.cg_precond,
             )
         else:
-            pos, quat, sw, summary = _pose_graph_solve(
-                tensor(positions), tensor(quaternions), switches0, flat["edges_dev"],
-                tensor(free), *common, P, L, options,
+            pose, sw, summary = _pose_graph_solve(
+                pose0, switches0, flat["edges_dev"], tensor(free), *common, P, L, options,
                 *self._prior_args(index_of),
             )
+        pos, quat = pose[:, :3], pose[:, 3:]
         # one device-to-host copy of the solved state
         state = torch.cat([pos.reshape(-1), quat.reshape(-1), sw]).cpu().numpy()
         pos = state[: 3 * P].reshape(P, 3).astype(np.float64)
@@ -1418,3 +1609,383 @@ class PoseGraphOptimizer:
             torch.as_tensor(np.array([index_of[pi] for pi in sel], np.int64), device=dev),
             torch.zeros(6 * B, dtype=dtype, device=dev),
         )
+
+
+# ----------------------------------------------------------------------------
+# SE(2) pose graph (BASELINE config 4: "2D and 3D relative-pose graph").
+# The reference repo has no 2D graph module; this follows the standard
+# g2o-style SE(2) edge with the same switchable-constraint treatment and
+# the same solve paths as the 3D optimizer above.
+# ----------------------------------------------------------------------------
+
+
+class PoseGraph2DEdges(NamedTuple):
+    reference_indices: Tensor  # (E,) int64
+    query_indices: Tensor  # (E,) int64
+    relative_xyt: Tensor  # (E, 3) (dx, dy, dtheta) in the reference frame
+    is_loop: Tensor  # (E,)
+    mask: Tensor  # (E,)
+    # optional sqrt-information: (E, 3) diagonal rows (1/sigma_x,
+    # 1/sigma_y, 1/sigma_theta) or (E, 3, 3) full matrices (g2o EDGE_SE2
+    # information; see io/g2o.py). None = unit weights. Penalty row
+    # unwhitened.
+    sqrt_info: Optional[Tensor] = None
+
+    @property
+    def num_edges(self) -> int:
+        return self.reference_indices.shape[0]
+
+
+def _wrap_angle(a: Tensor) -> Tensor:
+    """Branch-free angle wrap to (-pi, pi]: atan2(sin a, cos a), as the
+    JAX package writes it (a remainder differs at +-pi)."""
+    return torch.atan2(torch.sin(a), torch.cos(a))
+
+
+def se2_edge_residual(xyt_ref: Tensor, xyt_query: Tensor, rel: Tensor) -> Tensor:
+    """r = [R(th_r)^T (p_q - p_r) - t_rel ; wrap(th_q - th_r - th_rel)]."""
+    c, s = torch.cos(xyt_ref[2]), torch.sin(xyt_ref[2])
+    dp = xyt_query[:2] - xyt_ref[:2]
+    local = torch.stack([c * dp[0] + s * dp[1], -s * dp[0] + c * dp[1]])
+    dth = _wrap_angle(xyt_query[2] - xyt_ref[2] - rel[2])
+    return torch.cat([local - rel[:2], dth[None]])
+
+
+def se2_edge_residuals_and_jacobians(
+    xyt: Tensor,  # (P, 3)
+    switches: Tensor,  # (E,)
+    edges: PoseGraph2DEdges,
+    penalty_scale,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Batched SE(2) edge residuals and CLOSED-FORM Jacobian blocks.
+
+    r = [s? * (R(th_r)^T (p_q - p_r) - t_rel) ;
+         s? * wrap(th_q - th_r - th_rel) ;
+         loop? (1 - s) * penalty]                         (E, 4)
+    J_ref/J_query (E, 4, 3) with respect to (x, y, th); J_s (E, 4). The
+    wrap is a piecewise-constant shift, so its derivative is 1 almost
+    everywhere."""
+    dtype, device = xyt.dtype, xyt.device
+    E = edges.mask.shape[0]
+    ref = xyt[edges.reference_indices]  # (E, 3)
+    qry = xyt[edges.query_indices]
+    rel = edges.relative_xyt
+
+    c = torch.cos(ref[:, 2])
+    sn = torch.sin(ref[:, 2])
+    dx = qry[:, 0] - ref[:, 0]
+    dy = qry[:, 1] - ref[:, 1]
+    lx = c * dx + sn * dy
+    ly = -sn * dx + c * dy
+    dth = _wrap_angle(qry[:, 2] - ref[:, 2] - rel[:, 2])
+    r3 = torch.stack([lx - rel[:, 0], ly - rel[:, 1], dth], dim=-1)  # (E, 3)
+
+    zero = torch.zeros(E, dtype=dtype, device=device)
+    one = torch.ones(E, dtype=dtype, device=device)
+    # d local / d th_ref = [[-sn, c], [-c, -sn]] @ d
+    dlx_dth = -sn * dx + c * dy
+    dly_dth = -c * dx - sn * dy
+    J3_ref = torch.stack(
+        [
+            torch.stack([-c, -sn, dlx_dth], dim=-1),
+            torch.stack([sn, -c, dly_dth], dim=-1),
+            torch.stack([zero, zero, -one], dim=-1),
+        ],
+        dim=-2,
+    )  # (E, 3, 3)
+    J3_query = torch.stack(
+        [
+            torch.stack([c, sn, zero], dim=-1),
+            torch.stack([-sn, c, zero], dim=-1),
+            torch.stack([zero, zero, one], dim=-1),
+        ],
+        dim=-2,
+    )
+
+    if edges.sqrt_info is not None:
+        r3, J3_ref, J3_query = apply_sqrt_info(edges.sqrt_info, r3, J3_ref, J3_query)
+
+    loop = edges.is_loop > 0
+    sw = torch.where(loop, switches, one)
+    m = edges.mask
+    penalty = torch.where(loop, (1.0 - switches) * penalty_scale, zero)
+    r = torch.cat([r3 * sw[:, None], penalty[:, None]], dim=-1)
+    r = r * m[:, None]
+    smm = (sw * m)[:, None, None]
+    zero13 = torch.zeros((E, 1, 3), dtype=dtype, device=device)
+    J_ref = torch.cat([J3_ref * smm, zero13], dim=-2)  # (E, 4, 3)
+    J_query = torch.cat([J3_query * smm, zero13], dim=-2)
+    J_s = torch.cat(
+        [
+            torch.where(loop[:, None], r3, zero[:, None]),
+            torch.where(loop, one * -penalty_scale, zero)[:, None],
+        ],
+        dim=-1,
+    ) * m[:, None]  # (E, 4)
+    return r, J_ref, J_query, J_s
+
+
+class PoseGraphOptimizer2D:
+    """SE(2) pose-graph optimizer; same API shape as the 3D one. Its solve
+    paths are the 3D optimizer's at pose blocks of width 3 (the JAX
+    package writes them out a second time, ``_pose_graph_2d_solve*``); the
+    dense path's Tikhonov floor is the JAX package's 1e-10 for SE(2)."""
+
+    def __init__(
+        self,
+        dtype: torch.dtype = torch.float64,
+        switch_penalty: float = None,
+        edge_loss=None,
+        solver: str = "dense",
+        cg_iterations: int = 250,
+        cg_precond: str = "chain",
+        device="cuda",
+    ):
+        """``solver``: "auto" picks dense/banded/sparse/cg from the
+        graph's topology at solve() time (:func:`select_solver`; the
+        choice lands in ``last_solver_choice`` / ``last_selection``);
+        "dense" materializes the (3P+L)^2 normal matrix; "cg" is the
+        matrix-free path (same ``cg_iterations`` / ``cg_precond``
+        semantics as the 3D optimizer); "banded" is RCM + superblock
+        cyclic reduction; "sparse" is the nested-dissection multifrontal
+        direct solver (``solvers/multifrontal.py``) for loop-rich
+        fat-bandwidth city graphs (Olson's M3500 class) whose RCM
+        bandwidth grows with the arena diameter.
+
+        ``device``: where the solve runs, default "cuda"; raises without a
+        GPU unless "cpu" is asked for."""
+        if solver not in ("auto", "dense", "cg", "banded", "sparse"):
+            raise ValueError(f"unknown solver {solver!r}")
+        if cg_precond not in ("chain", "jacobi"):
+            raise ValueError(f"unknown cg_precond {cg_precond!r}")
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.edge_loss = edge_loss
+        self.solver = solver
+        self.cg_iterations = cg_iterations
+        self.cg_precond = cg_precond
+        self.switch_penalty = (
+            SWITCH_PENALTY_SCALE if switch_penalty is None else switch_penalty
+        )
+        self._poses: Dict[int, np.ndarray] = {}  # index -> (x, y, theta)
+        self._constant: set = set()
+        self._constraints: List[dict] = []
+        # nested-dissection plan cache: (topology key, Plan)
+        self._sparse_plan = None
+
+    def set_pose(self, index: int, xyt) -> None:
+        self._poses[index] = np.asarray(xyt, dtype=np.float64).copy()
+
+    def set_pose_constant(self, index: int) -> None:
+        if index not in self._poses:
+            raise KeyError(f"pose {index} not registered")
+        self._constant.add(index)
+
+    def set_constraint(
+        self,
+        reference_index: int,
+        query_index: int,
+        relative_xyt,
+        constraint_type: int = ConstraintType.ODOMETRY,
+        sqrt_info=None,
+    ) -> None:
+        """``sqrt_info``: optional whitening: scalar, (2,) = (1/sigma_t,
+        1/sigma_theta), (3,) diagonal = (x, y, theta), or a full (3, 3)
+        sqrt-information matrix (see :func:`sqrt_info_from_information` /
+        io.g2o)."""
+        if reference_index not in self._poses or query_index not in self._poses:
+            raise KeyError("constraint endpoints must be registered poses")
+        if reference_index == query_index:
+            raise ValueError("self-constraint is not allowed")
+        self._constraints.append(
+            dict(
+                reference_index=reference_index,
+                query_index=query_index,
+                relative_xyt=np.asarray(relative_xyt, np.float64).copy(),
+                type=constraint_type,
+                sqrt_info=_expand_sqrt_info_2d(sqrt_info),
+            )
+        )
+
+    def get_pose(self, index: int) -> np.ndarray:
+        return self._poses[index].copy()
+
+    def pose_indices(self) -> List[int]:
+        """Registered pose ids, sorted (the solver's packing order)."""
+        return sorted(self._poses)
+
+    def constraints(self) -> List[dict]:
+        """Shallow copies of the registered constraint records
+        (reference_index, query_index, relative_xyt, type, sqrt_info)."""
+        return [dict(c) for c in self._constraints]
+
+    def initialize(
+        self,
+        method: str = "chordal",
+        include_loops: bool = True,
+        cg_iterations: int = 300,
+    ) -> None:
+        """SE(2) counterpart of :meth:`PoseGraphOptimizer.initialize`:
+        replace non-constant estimates with a spanning-tree or chordal
+        (complex rotation averaging, float64, on the optimizer's device)
+        initialization from the edge measurements."""
+        from . import graph_init
+
+        indices = sorted(self._poses)
+        index_of = {pi: i for i, pi in enumerate(indices)}
+        P = len(indices)
+        cons = self._constraints
+        if not include_loops:
+            cons = [c for c in cons if c["type"] != ConstraintType.LOOP]
+        ref_idx = np.array([index_of[c["reference_index"]] for c in cons], np.int32)
+        query_idx = np.array([index_of[c["query_index"]] for c in cons], np.int32)
+        rel_xyt = np.stack([c["relative_xyt"] for c in cons]) if cons else np.zeros((0, 3))
+        is_loop = np.array([1.0 if c["type"] == ConstraintType.LOOP else 0.0 for c in cons])
+        anchor_ids = sorted(self._constant) or [indices[0]]
+        anchors = {index_of[pi]: self._poses[pi].copy() for pi in anchor_ids}
+
+        if method == "spanning_tree":
+            xyt = graph_init.spanning_tree_init_2d(
+                ref_idx, query_idx, rel_xyt, P, anchors, edge_priority=is_loop
+            )
+        elif method == "chordal":
+            xyt = graph_init.chordal_init_2d(
+                ref_idx, query_idx, rel_xyt, P, anchors,
+                cg_iterations=cg_iterations, device=self.device,
+            )
+        else:
+            raise ValueError(
+                f"unknown initialization method {method!r} "
+                "(spanning_tree | chordal)"
+            )
+        for pi in indices:
+            if pi in self._constant:
+                continue
+            self._poses[pi] = xyt[index_of[pi]].copy()
+
+    def _flat_2d(self):
+        """Pack the registry into solver arrays: (indices, index_of, P, L,
+        xyt (P, 3), free (P,), ref (E,), qry (E,), is_loop (E,)) on the
+        host and the edges on the device."""
+        indices = sorted(self._poses)
+        index_of = {pi: i for i, pi in enumerate(indices)}
+        P = len(indices)
+        xyt = np.stack([self._poses[pi] for pi in indices])
+        cs = self._constraints
+        ref = np.array([index_of[c["reference_index"]] for c in cs], np.int64)
+        qry = np.array([index_of[c["query_index"]] for c in cs], np.int64)
+        is_loop = np.array([1.0 if c["type"] == ConstraintType.LOOP else 0.0 for c in cs])
+        L = int(is_loop.sum())
+        dev, dtype = self.device, self.dtype
+        tensor = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+        w3 = stack_sqrt_info([c["sqrt_info"] for c in cs], 3)
+        edges = PoseGraph2DEdges(
+            reference_indices=torch.as_tensor(ref, device=dev),
+            query_indices=torch.as_tensor(qry, device=dev),
+            relative_xyt=tensor(np.stack([c["relative_xyt"] for c in cs])),
+            is_loop=tensor(is_loop),
+            mask=torch.ones(len(cs), dtype=dtype, device=dev),
+            sqrt_info=None if w3 is None else tensor(w3),
+        )
+        free = np.ones(P)
+        for pi in self._constant:
+            free[index_of[pi]] = 0.0
+        return indices, index_of, P, L, xyt, free, ref, qry, is_loop, edges
+
+    def _sparse_symbolic(self, P, ref_np, qry_np, xyt) -> multifrontal.Plan:
+        """Cached nested-dissection plan (``solvers/multifrontal.py``); the
+        (x, y) pose positions seed the geometric median cuts. The cache key
+        is the topology (endpoint arrays), not the pose values, so the
+        plan's device index maps upload once per topology."""
+        key = (P, len(ref_np), ref_np.tobytes(), qry_np.tobytes())
+        if self._sparse_plan is not None and self._sparse_plan[0] == key:
+            return self._sparse_plan[1]
+        plan = multifrontal.symbolic(
+            P, ref_np, qry_np, d=3, coords=np.asarray(xyt[:, :2], np.float64),
+            leaf_size=32,
+        )
+        self._sparse_plan = (key, plan)
+        return plan
+
+    def solve(self, options: Optional[Options] = None):
+        """Optimize all registered poses and write them back with theta
+        wrapped to (-pi, pi]. Returns (summary, switch_values); the
+        summary's tensors stay on the solve's device."""
+        if options is None:
+            options = Options().replace(max_iterations=500)
+        if not self._constraints:
+            raise ValueError(
+                "PoseGraphOptimizer2D.solve: no constraints registered; add "
+                "edges with set_constraint() before solving"
+            )
+        indices, index_of, P, L, xyt, free, ref_np, qry_np, is_loop, edges = self._flat_2d()
+        dev, dtype = self.device, self.dtype
+        tensor = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+        switches0 = torch.ones(L, dtype=dtype, device=dev)
+        common = (self.switch_penalty, self.edge_loss, P, L)
+
+        solver = self.solver
+        if solver == "auto":
+            # no SE(2) tridiag path exists; a tight band covers chains
+            solver, self.last_selection = select_solver(
+                P, ref_np, qry_np, is_loop, 3,
+                plan_fn=lambda: self._sparse_symbolic(P, ref_np, qry_np, xyt),
+                allow_tridiag=False,
+            )
+        self.last_solver_choice = solver
+
+        if solver == "sparse":
+            plan = self._sparse_symbolic(P, ref_np, qry_np, xyt)
+            out_xyt, sw, summary = _pose_graph_solve_sparse(
+                tensor(xyt), switches0, edges, tensor(free), *common, plan, options,
+            )
+        elif solver == "banded":
+            # host symbolic phase (the 3D optimizer's _flatten_banded
+            # recipe): the RCM pose ordering bounds the block bandwidth
+            perm, inv, bandwidth = _rcm_perm_bandwidth(P, ref_np, qry_np)
+            ssize = max(bandwidth, 8)
+            K = -(-P // ssize)
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            panel_bytes = K * (ssize * 3) ** 2 * itemsize
+            if panel_bytes > 2 << 30:
+                raise ValueError(
+                    f"banded solver: RCM bandwidth {bandwidth} over {P} "
+                    f"poses needs ~{2 * panel_bytes / 1e9:.1f} GB of "
+                    "superblock panels; use solver='cg' instead"
+                )
+            index = lambda a: torch.as_tensor(a, device=dev)
+            edges_p = edges._replace(
+                reference_indices=index(inv[ref_np]), query_indices=index(inv[qry_np])
+            )
+            xyt_p, sw, summary = _pose_graph_solve_banded(
+                tensor(xyt[perm]), switches0, edges_p, tensor(free[perm]), *common,
+                ssize, options,
+            )
+            out_xyt = xyt_p[index(inv)]
+        elif solver == "cg":
+            out_xyt, sw, summary = _pose_graph_solve_cg(
+                tensor(xyt), switches0, edges, tensor(free), *common, options,
+                self.cg_iterations, self.cg_precond,
+            )
+        else:
+            out_xyt, sw, summary = _pose_graph_solve(
+                tensor(xyt), switches0, edges, tensor(free), *common, options, floor=1e-10,
+            )
+        # one device-to-host copy of the solved state
+        state = torch.cat([out_xyt.reshape(-1), sw]).cpu().numpy().astype(np.float64)
+        out = state[: 3 * P].reshape(P, 3).copy()
+        # wrap theta on write-back (the SE(2) analog of quaternion
+        # renormalization)
+        out[:, 2] = np.arctan2(np.sin(out[:, 2]), np.cos(out[:, 2]))
+        for i, pi in enumerate(indices):
+            self._poses[pi] = out[i].copy()
+        sw = state[3 * P:].copy()
+        self._last_switches = sw.copy()
+        return summary, sw
+
+    # -- not ported yet -------------------------------------------------------
+    def solve_batch(self, *args, **kwargs):
+        raise NotImplementedError(f"PoseGraphOptimizer2D.solve_batch {_SOLVE_BATCH}")
+
+    def covariance(self, *args, **kwargs):
+        raise NotImplementedError(f"PoseGraphOptimizer2D.covariance {_COVARIANCE}")

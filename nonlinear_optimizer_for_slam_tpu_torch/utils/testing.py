@@ -10,7 +10,7 @@ determines how many grid samples are generated).
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -443,3 +443,104 @@ def generate_sphere_g2o(
         graph.vertices[k] = np.concatenate([est.translation, est.quaternion()])
     graph.fixed.add(0)
     return graph, pos
+
+
+def generate_manhattan_g2o(
+    n_poses: int = 3500,
+    step: float = 1.0,
+    s_t: float = 0.03,
+    s_r: float = 0.01,
+    turn_prob: float = 0.35,
+    closure_gap: int = 20,
+    max_closures_per_pose: int = 2,
+    arena: Optional[int] = None,
+    seed: int = 7,
+):
+    """Manhattan-world SE(2) pose graph in g2o form (the classic ``M3500``
+    construction, Olson 2006: a random walk on a BOUNDED unit grid, whose
+    bounded arena makes revisits and therefore loop closures dense, with
+    90-degree turns, noisy odometry, loop closures to earlier poses that
+    revisit the same cell, and vertices initialized by dead-reckoning the
+    noisy odometry).
+
+    ``arena``: grid side length in cells, default 10 (Olson's M3500 world
+    is a 10x10-block city). Defaults produce 3,500 vertices and about
+    10,000 edges: M3500 scale. Returns (G2oGraph(dim=2),
+    ground_truth_xyt (N, 3) ndarray)."""
+    from ..io.g2o import G2oEdge, G2oGraph
+
+    rng = np.random.default_rng(seed)
+    n = n_poses
+    side = int(arena if arena is not None else 10)
+
+    # bounded grid random walk: heading in {0, 1, 2, 3} * 90deg
+    gt = np.zeros((n, 3))
+    heading = 0
+    cell = np.zeros(2)
+    cell_log = {}  # (ix, iy) -> [pose ids]
+    dirs = np.array([[1.0, 0.0], [0.0, 1.0], [-1.0, 0.0], [0.0, -1.0]])
+
+    def in_arena(c):
+        return 0 <= c[0] <= side and 0 <= c[1] <= side
+
+    for k in range(n):
+        gt[k, :2] = cell * step
+        gt[k, 2] = heading * (np.pi / 2.0)
+        key = (int(round(cell[0])), int(round(cell[1])))
+        cell_log.setdefault(key, []).append(k)
+        u = rng.uniform()
+        if u < turn_prob / 2:
+            heading = (heading + 1) % 4
+        elif u < turn_prob:
+            heading = (heading - 1) % 4
+        tries = 0
+        while not in_arena(cell + dirs[heading]) and tries < 4:
+            heading = (heading + 1) % 4
+            tries += 1
+        cell = cell + dirs[heading]
+
+    def wrap(a):
+        return (a + np.pi) % (2.0 * np.pi) - np.pi
+
+    def rel_xyt(i, j):
+        c, s = np.cos(gt[i, 2]), np.sin(gt[i, 2])
+        d = gt[j, :2] - gt[i, :2]
+        return np.array(
+            [c * d[0] + s * d[1], -s * d[0] + c * d[1], wrap(gt[j, 2] - gt[i, 2])]
+        )
+
+    def noisy(r):
+        return r + np.array(
+            [rng.normal(0, s_t), rng.normal(0, s_t), rng.normal(0, s_r)]
+        )
+
+    info = np.diag([1.0 / s_t**2, 1.0 / s_t**2, 1.0 / s_r**2])
+
+    graph = G2oGraph(dim=2)
+    odo = []
+    for k in range(n - 1):
+        m = noisy(rel_xyt(k, k + 1))
+        odo.append(m)
+        graph.edges.append(G2oEdge(k, k + 1, m, info.copy()))
+    for k in range(n):
+        key = (int(round(gt[k, 0] / step)), int(round(gt[k, 1] / step)))
+        added = 0
+        for j in cell_log.get(key, []):
+            if k - j < closure_gap or added >= max_closures_per_pose:
+                continue
+            graph.edges.append(G2oEdge(j, k, noisy(rel_xyt(j, k)), info.copy()))
+            added += 1
+
+    # dead-reckon the noisy odometry for the drifted init
+    est = gt[0].copy()
+    graph.vertices[0] = est.copy()
+    for k in range(1, n):
+        m = odo[k - 1]
+        c, s = np.cos(est[2]), np.sin(est[2])
+        est = np.array(
+            [est[0] + c * m[0] - s * m[1], est[1] + s * m[0] + c * m[1],
+             wrap(est[2] + m[2])]
+        )
+        graph.vertices[k] = est.copy()
+    graph.fixed.add(0)
+    return graph, gt

@@ -1,8 +1,10 @@
 """The port's g2o IO, pose-graph fixtures and pose-graph interop against
 the JAX package.
 
-- ``generate_pose_graph_fixture`` and ``generate_sphere_g2o`` (full size
-  and 5 rings of 20) generate exactly what the JAX copies generate;
+- ``generate_pose_graph_fixture``, ``generate_sphere_g2o`` (full size
+  and 5 rings of 20) and ``generate_manhattan_g2o`` (M3500, the
+  10,000-pose city, 400 poses) generate exactly what the JAX copies
+  generate;
 - ``write_g2o`` and ``read_g2o`` round-trip a small sphere and a 3-D file
   with full information matrices, fixed vertices and landmark records:
   each package reads what the other wrote, equal to 9 significant digits
@@ -10,8 +12,9 @@ the JAX package.
   2-D files read alike;
 - ``load_pose_graph`` builds the same optimizer as JAX's (poses,
   constraint types and whitening, gauge, switch penalty) with and without
-  ``switchable_loops`` and ``unit_information``; a 2-D file raises
-  NotImplementedError; ``save_pose_graph`` writes JAX's text;
+  ``switchable_loops`` and ``unit_information``; a 2-D file loads into
+  JAX's ``PoseGraphOptimizer2D`` and a 2-D file with landmark records
+  raises NotImplementedError; ``save_pose_graph`` writes JAX's text;
 - ``interop`` carries ``PoseGraphEdges`` (sqrt_info None, diagonal, full)
   and a pose-graph state onto the device and back exactly.
 """
@@ -112,18 +115,39 @@ def test_round_trip_against_jax(tmp_path, full_info_graph, rng):
 
 
 def test_two_dimensional_files_read_alike_and_do_not_load(tmp_path):
+    """2-D files read alike and load into JAX's PoseGraphOptimizer2D (the
+    SE(2) optimizer is ported; before it was, they did not load); a 2-D
+    file with landmark records still does not load."""
     path = tmp_path / "planar.g2o"
     path.write_text(
         "VERTEX_SE2 0 0 0 0\nVERTEX_SE2 1 1 0 0.1\nVERTEX_SE2 2 2 0.1 0.2\n"
         "EDGE_SE2 0 1 1 0 0.1 10 0 0 10 0 100\nEDGE_SE2 1 2 1 0.1 0.1 10 0 0 10 0 100\nFIX 0\n"
     )
     _assert_graphs_equal(tg2o.read_g2o(str(path)), jg2o.read_g2o(str(path)))
-    with pytest.raises(NotImplementedError, match="PoseGraphOptimizer2D"):
-        tg2o.load_pose_graph(str(path), device="cpu")
+    topt = tg2o.load_pose_graph(str(path), device="cpu")
+    jopt = jg2o.load_pose_graph(str(path))
+    assert type(topt).__name__ == type(jopt).__name__ == "PoseGraphOptimizer2D"
+    for i in range(3):
+        assert np.array_equal(topt.get_pose(i), jopt.get_pose(i))
+    for a, b in zip(topt.constraints(), jopt.constraints(), strict=True):
+        assert np.array_equal(a["sqrt_info"], b["sqrt_info"])
+    landmarks = tmp_path / "landmarks.g2o"
+    landmarks.write_text(path.read_text() + "VERTEX_XY 7 1 2\nEDGE_SE2_XY 1 7 0 2 1 0 1\n")
+    with pytest.raises(NotImplementedError, match="landmark"):
+        tg2o.load_pose_graph(str(landmarks), device="cpu")
     bad = tmp_path / "bad.g2o"
     bad.write_text("VERTEX_SE3:QUAT 0 0 0 0 0 0 0 1\nEDGE_SE3:QUAT 0 1 1 2 3\n")
     with pytest.raises(ValueError, match="malformed EDGE_SE3:QUAT"):
         tg2o.read_g2o(str(bad))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(n_poses=10000, arena=17, seed=11),
+                                dict(n_poses=400, seed=3)], ids=["m3500", "city10000", "n400"])
+def test_manhattan_generator_is_the_jax_generator(kw):
+    got, got_truth = ttesting.generate_manhattan_g2o(**kw)
+    want, want_truth = jtesting.generate_manhattan_g2o(**kw)
+    _assert_graphs_equal(got, want)
+    assert np.array_equal(got_truth, want_truth)
 
 
 def _optimizer_record(opt):

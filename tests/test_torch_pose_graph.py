@@ -14,13 +14,24 @@ same. Also:
   ``edge_residuals``) and the switched-off outlier, as in
   tests/test_pose_graph.py;
 - ``select_solver`` on full-size sphere2500 and on the two 5,000-pose
-  chains of tests/test_solver_selection.py gives JAX's name and info;
+  chains of tests/test_solver_selection.py gives JAX's name and info, and
+  on a 1,000-pose expander graph the optimizer's "auto" builds the
+  nested-dissection plan and picks JAX's family ("sparse") with JAX's
+  numbers;
+- solver="sparse" (the nested-dissection multifrontal Cholesky) on the
+  80-pose fixture, with and without ``HuberLoss(1.0)``, against JAX's
+  sparse solve and the port's dense one (counts equal; final cost within
+  rtol 1e-10, poses and switches within 1e-9; with Huber rtol 1e-8 and
+  1e-7, the JAX package's own sparse-against-dense tolerances,
+  tests/test_pose_graph_sparse.py), and a 60-pose chain registered under
+  shuffled ids against JAX;
 - a small sphere (5 rings of 20, full information matrices) by banded, and
   a 120-pose chain with 40 corrections (the chunked Woodbury form, with a
   reversed and a doubled chain edge) by tridiag, against JAX (counts
   equal, poses within 1e-8);
-- the unported options raise NotImplementedError, and the ValueErrors are
-  JAX's word for word.
+- the unported options raise NotImplementedError naming their ROADMAP
+  items (covariance A.11.2, solve_batch A.11.3, mesh= A.8), and the
+  ValueErrors are JAX's word for word.
 """
 
 import numpy as np
@@ -30,6 +41,7 @@ import torch
 import nonlinear_optimizer_for_slam_tpu as nls
 from nonlinear_optimizer_for_slam_tpu.core import HuberLoss as JHuber
 from nonlinear_optimizer_for_slam_tpu.io import g2o as jg2o
+from nonlinear_optimizer_for_slam_tpu.solvers import multifrontal as jmf
 from nonlinear_optimizer_for_slam_tpu.solvers import pose_graph as jpg
 from nonlinear_optimizer_for_slam_tpu.utils import testing as jtesting
 import nonlinear_optimizer_for_slam_tpu_torch as port
@@ -259,14 +271,18 @@ def test_select_solver_matches_jax():
 
 
 def test_auto_raises_where_it_would_consult_the_sparse_plan():
-    """A random expander graph: the band is fat, so 'auto' would build the
-    multifrontal plan, which is not ported; the port says so rather than
-    pick another family than JAX would."""
+    """A random expander graph: the band is fat, so 'auto' builds the
+    multifrontal plan (positions as cut coordinates, leaf 16, as the JAX
+    package's _flatten_sparse) and picks JAX's family with JAX's numbers.
+    The sparse path once raised NotImplementedError here; it is ported
+    now, so the check is the choice. Host only: the solve runs no LM
+    iteration."""
     rng = np.random.default_rng(3)
     P = 1000
     opt = tpg.PoseGraphOptimizer(solver="auto", device="cpu")
+    positions = rng.normal(size=(P, 3))
     for i in range(P):
-        opt.set_pose(i, port.Pose(np.eye(3), rng.normal(size=3)))
+        opt.set_pose(i, port.Pose(np.eye(3), positions[i]))
     opt.set_pose_constant(0)
     for i in range(P - 1):
         opt.set_constraint(i, i + 1, port.Pose(np.eye(3), rng.normal(size=3)))
@@ -274,8 +290,76 @@ def test_auto_raises_where_it_would_consult_the_sparse_plan():
         if abs(a - b) > 1:
             opt.set_constraint(int(a), int(b), port.Pose(np.eye(3), rng.normal(size=3)),
                                tpg.ConstraintType.LOOP)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        opt.solve()
+    summary, _ = opt.solve(port.Options().replace(max_iterations=0))
+    flat = opt._flatten()
+    ref, qry = flat["ref_idx"].astype(np.int64), flat["query_idx"].astype(np.int64)
+    want = jpg.select_solver(
+        P, ref, qry, flat["is_loop"], 7,
+        plan_fn=lambda: jmf.symbolic(P, ref, qry, d=7, coords=positions, leaf_size=16),
+    )
+    assert (opt.last_solver_choice, opt.last_selection) == want
+    assert want[0] == "sparse" and int(summary.iterations) == 0
+    assert flat["sparse"]["plan"].stats() == jmf.symbolic(
+        P, ref, qry, d=7, coords=positions, leaf_size=16).stats()
+
+
+# ---- solver="sparse": the nested-dissection multifrontal Cholesky ----------------
+
+
+@pytest.mark.parametrize("huber", [False, True])
+def test_sparse_fixture_matches_jax_and_dense(fixture, huber):
+    """The port's sparse solve against JAX's sparse solve and the port's
+    dense solve, at the JAX package's own sparse-against-dense tolerances
+    (tests/test_pose_graph_sparse.py: cost rtol 1e-10, poses and switches
+    1e-9; with Huber cost rtol 1e-8, poses 1e-7). JAX factors in float32
+    with two refinement sweeps, the port in float64."""
+    cost_rtol, tol = (1e-8, 1e-7) if huber else (1e-10, 1e-9)
+    loss = {"jax": JHuber(1.0), "torch": port.HuberLoss(1.0)} if huber else {"jax": None, "torch": None}
+    build = lambda m, solver: _build(m, fixture, solver=solver, switch_penalty=0.03, edge_loss=loss[m])
+    jopt, topt, dense = build("jax", "sparse"), build("torch", "sparse"), build("torch", "dense")
+    (js, jsw), (ts, tsw), (ds, dsw) = jopt.solve(), topt.solve(), dense.solve()
+    indices = topt.pose_indices()
+    for other, s_o, sw_o in ((jopt, js, jsw), (dense, ds, dsw)):
+        assert int(ts.iterations) == int(s_o.iterations)
+        np.testing.assert_allclose(float(ts.final_cost), float(s_o.final_cost), rtol=cost_rtol)
+        for got, want in zip(_state(topt, indices), _state(other, indices)):
+            np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+        np.testing.assert_allclose(tsw, np.asarray(sw_o), rtol=0, atol=tol)
+    assert topt.last_solver_choice == "sparse"
+    assert np.abs(tsw[3]) < 0.1 and np.all(np.abs(tsw[:3]) > 0.5)
+
+
+def test_sparse_shuffled_ids_matches_jax():
+    """Pose ids registered in shuffled order (tests/test_pose_graph_sparse.py
+    ::test_sparse_shuffled_ids): the dissection is on the coupling graph,
+    not the id order. Counts equal, poses within 1e-9 of JAX's, and the
+    JAX test's bound on the error against the truth."""
+    rng = np.random.default_rng(9)
+    P = 60
+    true_pos = np.cumsum(0.3 * rng.normal(size=(P, 3)), axis=0)
+    ids = rng.permutation(P)
+    noisy = [true_pos[k] + (0.03 * rng.normal(size=3) if k else 0.0) for k in range(P)]
+
+    def build(module):
+        opt, Pose, _ = _optimizer(module, switch_penalty=0.03, solver="sparse")
+        for k in range(P):
+            opt.set_pose(int(ids[k]), Pose(np.eye(3), noisy[k]))
+        opt.set_pose_constant(int(ids[0]))
+        for k in range(P - 1):
+            opt.set_constraint(int(ids[k]), int(ids[k + 1]),
+                               Pose(np.eye(3), true_pos[k + 1] - true_pos[k]))
+        return opt
+
+    options = {"jax": nls.Options().replace(max_iterations=50),
+               "torch": port.Options().replace(max_iterations=50)}
+    jopt, topt = build("jax"), build("torch")
+    js, _ = jopt.solve(options["jax"])
+    ts, _ = topt.solve(options["torch"])
+    assert int(ts.iterations) == int(js.iterations)
+    for got, want in zip(_state(topt, range(P)), _state(jopt, range(P))):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    err = max(np.linalg.norm(topt.get_pose(int(ids[k])).translation - true_pos[k]) for k in range(P))
+    assert err < 1e-3, err
 
 
 # ---- larger graphs against JAX -----------------------------------------------
@@ -322,14 +406,16 @@ def test_chunked_woodbury_tridiag_matches_jax():
 
 
 def test_unported_options_raise(fixture):
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tpg.PoseGraphOptimizer(solver="sparse", device="cpu")
     with pytest.raises(NotImplementedError, match="A.8"):
         tpg.PoseGraphOptimizer(solver="cg", mesh=object(), device="cpu")
     opt = _build("torch", fixture)
-    for call in (opt.initialize, opt.covariance, opt.solve_batch):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            call()
+    with pytest.raises(NotImplementedError, match="A.11.2"):
+        opt.covariance()
+    with pytest.raises(NotImplementedError, match="A.11.3"):
+        opt.solve_batch()
+    # solver="sparse" and initialize() are ported: neither raises
+    assert tpg.PoseGraphOptimizer(solver="sparse", device="cpu").solver == "sparse"
+    opt.initialize(method="spanning_tree")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tpg.PoseGraphOptimizer()
