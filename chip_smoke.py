@@ -35,7 +35,15 @@ against dense (two sparse solves bitwise equal), sphere2500 by sparse
 against banded, M3500 (3,500 SE(2) poses) through the g2o writer and
 reader, ``initialize(method="chordal")`` and solver="auto" (sparse)
 against banded and dense from the same start, and the 10,000-pose city
-(auto: sparse) timed beside banded under a cap of LM iterations.
+(auto: sparse) timed beside banded under a cap of LM iterations; ATE and
+RPE of the sphere2500 and M3500 solutions (``utils/evaluation.py``). Then
+the marginal covariances (the fixture, sphere2500, M3500 and the city by
+auto, banded and the multifrontal selected inverse against dense, the
+city against sparse) and the batched solves (the fixture at B = 256 with
+resampled measurements, 16 lanes against their serial solves; a 500-pose
+SE(2) world at B = 32; the Monte-Carlo ring at B = 768 against
+``covariance()``; a probe of the lone and batched 564-row factor), in
+float64 and with no port kernel.
 Every phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code.
 The line before the last is the ``kernels`` summary, the last line
@@ -1333,13 +1341,17 @@ def main() -> int:
          designs=ab, device=name, nvidia_smi=smi)
     # ---- the SE(3) pose graph, float64 (no port kernel on its path) --------
     _pose_graph_reference(dev, name, smi)
-    _pose_graph_sphere2500(dev, name, smi)
+    sphere = _pose_graph_sphere2500(dev, name, smi)
     _pose_graph_chain(dev, name, smi)
     # ---- the sparse multifrontal solver, SE(2) and the initializer -------
     _pose_graph_sparse_reference(dev, name, smi)
     _pose_graph_sparse_sphere2500(dev, name, smi)
-    _pose_graph_m3500(dev, name, smi)
-    _pose_graph_city10000(dev, name, smi)
+    m3500 = _pose_graph_m3500(dev, name, smi)
+    city = _pose_graph_city10000(dev, name, smi)
+    # ---- marginal covariances and batched solves (no port kernel) --------
+    _pose_graph_covariance(dev, name, smi, sphere, m3500, city)
+    del sphere, m3500, city
+    _pose_graph_batch(dev, name, smi)
 
     kernels = []
     for kernel in KERNEL_SHAPE:
@@ -1589,9 +1601,11 @@ def _pose_graph_reference(dev, name: str, smi: str) -> None:
          port_kernel_launches=0, device=name, nvidia_smi=smi)
 
 
-def _pose_graph_sphere2500(dev, name: str, smi: str) -> None:
+def _pose_graph_sphere2500(dev, name: str, smi: str):
     """sphere2500 through the port's g2o writer and reader and
-    solver="auto" (banded), against dense at 17,500 unknowns, then CG."""
+    solver="auto" (banded), against dense at 17,500 unknowns, then CG; ATE
+    and RPE of the banded solution (``utils/evaluation.py``). Returns the
+    optimizer at the banded solution."""
     import torch
 
     from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
@@ -1616,7 +1630,10 @@ def _pose_graph_sphere2500(dev, name: str, smi: str) -> None:
     if opt.last_solver_choice != "banded" or opt.last_selection != SPHERE_SELECTION:
         raise AssertionError(f"pose_graph_sphere2500: auto chose {opt.last_solver_choice} "
                              f"{opt.last_selection}")
+    solved = {vid: opt.get_pose(vid) for vid in ids}
     banded_pos, banded_quat = _pg_state(opt, ids)
+    trajectory = _trajectory_errors(
+        np.concatenate([banded_pos, banded_quat], axis=1), _sphere_truth(truth), planar=False)
     banded_cost = float(summary.final_cost)
     runs = {"banded": dict(final_cost=banded_cost, rmse_after=rmse(banded_pos),
                            **_pg_timed(opt, initial, None)[0])}
@@ -1675,7 +1692,11 @@ def _pose_graph_sphere2500(dev, name: str, smi: str) -> None:
     emit("pose_graph_sphere2500", poses=len(ids), edges=len(graph.edges), dtype="float64",
          auto_choice=opt.last_solver_choice, selection=opt.last_selection,
          dense_unknowns=7 * len(ids), rmse_before=rmse_before, solvers=runs,
+         banded_trajectory_errors=trajectory,
          port_kernel_launches=0, device=name, nvidia_smi=smi)
+    for vid, pose in solved.items():  # back to the banded solution
+        opt.set_pose(vid, pose)
+    return opt
 
 
 def _pose_graph_chain(dev, name: str, smi: str) -> None:
@@ -1947,11 +1968,12 @@ def _from(path, solver, initial, dev):
     return opt
 
 
-def _pose_graph_m3500(dev, name: str, smi: str) -> None:
+def _pose_graph_m3500(dev, name: str, smi: str):
     """M3500 (Olson's Manhattan world, 3,500 SE(2) poses) through the g2o
     file, the chordal initialization and solver="auto": auto picks sparse;
     the sparse solve against banded and dense (10,500 unknowns) from the
-    same initialization."""
+    same initialization; ATE and RPE of the sparse solution. Returns the
+    optimizer at the sparse solution."""
     import torch
 
     import nonlinear_optimizer_for_slam_tpu_torch as port
@@ -1970,6 +1992,7 @@ def _pose_graph_m3500(dev, name: str, smi: str) -> None:
         raise AssertionError(f"pose_graph_m3500: auto chose {opt.last_solver_choice} {opt.last_selection}")
     selection = dict(opt.last_selection)
     states["sparse"] = _pg2d_state(opt)
+    solved = {vid: opt.get_pose(vid) for vid in opt.pose_indices()}
     plan = opt._sparse_plan[1]
     timed, _ = _pg_timed(opt, initial, options)
     runs["sparse"] = dict(first_solve_wall_ms=wall, peak_memory_gb=peak, **timed,
@@ -2025,13 +2048,18 @@ def _pose_graph_m3500(dev, name: str, smi: str) -> None:
          predicted_ms_per_lm_iteration={"sparse": selection["predicted_sparse_ms"],
                                         "banded": selection["predicted_banded_ms"]},
          solvers=runs, sparse_against=against, dense_unknowns=3 * P,
+         sparse_trajectory_errors=_trajectory_errors(states["sparse"], truth, planar=True),
          port_kernel_launches=0, device=name, nvidia_smi=smi)
+    for vid, xyt in solved.items():  # back to the sparse solution
+        opt.set_pose(vid, xyt)
+    return opt
 
 
-def _pose_graph_city10000(dev, name: str, smi: str) -> None:
+def _pose_graph_city10000(dev, name: str, smi: str):
     """The 10,000-pose city through the same flow: auto picks sparse; the
     sparse and banded solves timed under CITY_LM_ITERATIONS LM iterations
-    from the same initialization."""
+    from the same initialization. Returns the optimizer at its capped
+    sparse solution."""
     import nonlinear_optimizer_for_slam_tpu_torch as port
     from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
 
@@ -2042,6 +2070,7 @@ def _pose_graph_city10000(dev, name: str, smi: str) -> None:
     summaries["sparse"], _, wall, peak = _pg_solve_timed(opt, capped)
     if opt.last_solver_choice != "sparse":
         raise AssertionError(f"pose_graph_city10000: auto chose {opt.last_solver_choice} {opt.last_selection}")
+    solved = {vid: opt.get_pose(vid) for vid in opt.pose_indices()}
     selection = dict(opt.last_selection)
     plan = opt._sparse_plan[1]
     timed, _ = _pg_timed(opt, initial, capped, runs=1)
@@ -2068,6 +2097,383 @@ def _pose_graph_city10000(dev, name: str, smi: str) -> None:
          predicted_ms_per_lm_iteration={"sparse": selection["predicted_sparse_ms"],
                                         "banded": selection["predicted_banded_ms"]},
          solvers=runs, port_kernel_launches=0, device=name, nvidia_smi=smi)
+    for vid, xyt in solved.items():  # back to the capped sparse solution
+        opt.set_pose(vid, xyt)
+    return opt
+
+
+def _sphere_truth(pos):
+    """(N, 7) [t, q] ground truth of ``generate_sphere_g2o`` from its
+    positions: the generator's frames (z along the outward normal, x along
+    the travel, y completing the frame)."""
+    from nonlinear_optimizer_for_slam_tpu_torch.core.pose import np_rotmat_to_quat_batch
+
+    n = len(pos)
+    k = np.arange(n)
+    z = pos / np.linalg.norm(pos, axis=1, keepdims=True)
+    t = pos[np.minimum(k + 1, n - 1)] - pos[np.maximum(k - 1, 0)]
+    x = t - np.sum(t * z, axis=1, keepdims=True) * z
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    R = np.stack([x, np.cross(z, x), z], axis=2)
+    return np.concatenate([pos, np_rotmat_to_quat_batch(R)], axis=1)
+
+
+def _trajectory_errors(est, truth, planar: bool) -> dict:
+    """ATE (after a rigid alignment) and one-step RPE of an estimate
+    against the truth through the port's ``utils/evaluation.py``: (N, 7)
+    [t, q] arrays, or (N, 3) SE(2) xyt arrays with ``planar``."""
+    from nonlinear_optimizer_for_slam_tpu_torch.utils import evaluation
+
+    return dict(ate_m=evaluation.absolute_trajectory_error(est, truth, planar=planar),
+                rpe=evaluation.relative_pose_error(est, truth, delta=1))
+
+
+# Marginal covariances by two methods agree within this share of each
+# block's largest entry (tests/test_torch_covariance.py holds the port's
+# dense, banded and sparse blocks to rtol 1e-9).
+COV_RTOL = 1e-9
+
+
+def _block_diff(got: dict, want: dict) -> float:
+    """Largest |got - want| over the blocks, each relative to the largest
+    entry of its block in ``want``."""
+    return max(float(np.abs(got[k] - want[k]).max() / max(np.abs(want[k]).max(), 1e-300))
+               for k in want)
+
+
+def _covariances(opt, methods) -> tuple:
+    """``opt.covariance(method=m)`` for each method, with its wall (ms,
+    host clock to a synchronise) and peak device memory (GB above what was
+    allocated before it). "auto" is named by the method whose blocks it
+    returned bit for bit."""
+    import torch
+
+    covs, runs = {}, {}
+    for method in methods:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        covs[method] = opt.covariance(method=method)
+        torch.cuda.synchronize()
+        runs[method] = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                            peak_memory_gb=(torch.cuda.max_memory_allocated() - before) / 1e9)
+    if "auto" in covs:
+        same = [m for m in methods if m != "auto"
+                and all(np.array_equal(covs["auto"][k], covs[m][k]) for k in covs[m])]
+        runs["auto"]["chose"] = same[0] if same else None
+    return covs, runs
+
+
+def _pose_graph_covariance(dev, name: str, smi: str, sphere, m3500, city) -> None:
+    """Marginal covariances in float64 (plain PyTorch ops, no port kernel):
+    the 80-pose fixture by dense, banded and sparse; sphere2500 at its
+    banded solution by auto, banded and sparse against dense at 15,000
+    unknowns; M3500 at its sparse solution by auto, banded, sparse and
+    dense (10,500 unknowns); the 10,000-pose city by auto, banded and
+    sparse, with no dense. Each agrees with the last named within COV_RTOL
+    of each block's largest entry."""
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers import pose_graph as pg
+    from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
+
+    ck.reset_launches()
+    LOOP, ODOM = pg.ConstraintType.LOOP, pg.ConstraintType.ODOMETRY
+    _, noisy, constraints = testing.generate_pose_graph_fixture()
+    fixture = pg.PoseGraphOptimizer(switch_penalty=0.03, device=dev)
+    for i, p in enumerate(noisy):
+        fixture.set_pose(i, p)
+    fixture.set_pose_constant(0)
+    for c in constraints:
+        fixture.set_constraint(c["reference_index"], c["query_index"], c["relative_pose"],
+                               LOOP if c["is_loop"] else ODOM)
+    fixture.solve()
+    graphs = {
+        "fixture80": (fixture, ("dense", "banded", "sparse", "auto"), "dense"),
+        "sphere2500": (sphere, ("auto", "banded", "sparse", "dense"), "dense"),
+        "m3500": (m3500, ("auto", "banded", "sparse", "dense"), "dense"),
+        "city10000": (city, ("auto", "banded", "sparse"), "sparse"),
+    }
+    report, worst = {}, {}
+    for graph, (opt, methods, against) in graphs.items():
+        covs, runs = _covariances(opt, methods)
+        for method in methods:
+            if method != against:
+                runs[method][f"block_rel_diff_vs_{against}"] = _block_diff(covs[method], covs[against])
+        worst[graph] = max(r.get(f"block_rel_diff_vs_{against}", 0.0) for r in runs.values())
+        report[graph] = dict(poses=len(covs[against]), methods=runs)
+    _no_port_kernels("pose_graph_covariance")
+    if max(worst.values()) > COV_RTOL or report["fixture80"]["methods"]["auto"]["chose"] != "dense":
+        raise AssertionError(f"pose_graph_covariance: {report}")
+    emit("pose_graph_covariance", dtype="float64", block_rel_tol=COV_RTOL,
+         worst_block_rel_diff=worst, graphs=report, dense_unknowns={
+             "sphere2500": 6 * len(sphere.pose_indices()),
+             "m3500": 3 * len(m3500.pose_indices())},
+         port_kernel_launches=0, device=name, nvidia_smi=smi)
+
+
+# The Monte-Carlo oracle of tests/test_pose_graph_batch.py: an 8-pose ring
+# with one chord, B = 768 measurement draws at these sigmas, its bounds.
+MC_SIGMA_T, MC_SIGMA_R = 0.03, 0.02
+MC_BATCH = 768
+BATCH_LANES = 256  # the 80-pose fixture's batch
+SERIAL_LANES = 16  # of them solved one by one
+BATCH_2D_LANES = 32  # the 500-pose SE(2) Manhattan world's batch
+SERIAL_2D_LANES = 4
+BATCH_POSE_TOL = 1e-9
+
+
+def _quat_mul(a, q):
+    """Hamilton product of (..., 4) wxyz arrays."""
+    w1, x1, y1, z1 = np.moveaxis(a, -1, 0)
+    w2, x2, y2, z2 = np.moveaxis(q, -1, 0)
+    return np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2, w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2, w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2],
+                    axis=-1)
+
+
+def _batch_probe(dev) -> dict:
+    """Which ops of a dense pose-graph LM iteration give a system the same
+    bits alone and in a batch of BATCH_LANES, at the 80-pose fixture's
+    sizes (n = 7 * 80 + 4 = 564 rows, 83 edges): cuSOLVER's potrf against
+    potrfBatched, torch's triangular solve of one system against its
+    batched kernel, the linearization's small batched matmuls (3x4 by 4x4
+    Jacobian chains, 7x7 Gram blocks, a row of 7 by 7x7), and the batched
+    ``index_put_(accumulate=True)`` with per-instance offsets, whose stable
+    sort must keep each instance's serial order (required)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 41)
+    n, B, E = 564, BATCH_LANES, 83
+    rand = lambda *shape: torch.as_tensor(rng.normal(size=shape), device=dev)
+    same = lambda a, b: bool(torch.equal(a, b))
+    A = rand(B, n, n)
+    H = A @ A.mT + n * torch.eye(n, dtype=A.dtype, device=dev)
+    rhs = rand(B, n)
+    batched = torch.linalg.cholesky_ex(H)[0]
+    lone = torch.stack([torch.linalg.cholesky_ex(h[None])[0][0] for h in H])
+    tri = torch.linalg.solve_triangular(lone, rhs[..., None], upper=False)
+    tri_lone = torch.stack([torch.linalg.solve_triangular(f[None], r[None, :, None], upper=False)[0]
+                            for f, r in zip(lone, rhs)])
+    # what a lone factor and solve per lane would cost against the batch
+    timings = {
+        "potrfBatched_ms": _wall_ms(lambda: torch.linalg.cholesky_ex(H), 5),
+        "potrf_lone_loop_ms": _wall_ms(lambda: [torch.linalg.cholesky_ex(h[None]) for h in H], 5),
+        "trsm_batched_ms": _wall_ms(
+            lambda: torch.linalg.solve_triangular(lone, rhs[..., None], upper=False), 5),
+        "trsm_lone_loop_ms": _wall_ms(lambda: [torch.linalg.solve_triangular(
+            f[None], r[None, :, None], upper=False) for f, r in zip(lone, rhs)], 5),
+    }
+    per_lane = lambda fn, *xs: torch.cat([fn(*(x[b * E:(b + 1) * E] for x in xs)) for b in range(B)])
+    J34, D44, J77, r7 = rand(B * E, 3, 4), rand(B * E, 4, 4), rand(B * E, 7, 7), rand(B * E, 7)
+    chain = lambda a, b: a @ b
+    gram = lambda J: J.mT @ J
+    row = lambda J, r: (r[:, None, :] @ J)[:, 0, :]
+    idx = torch.as_tensor(rng.integers(0, n * n, E * 225), device=dev)
+    vals = rand(B, idx.numel())
+    offsets = n * n * torch.arange(B, device=dev)[:, None]
+    scattered = torch.zeros(B * n * n, dtype=vals.dtype, device=dev).index_put_(
+        ((idx[None] + offsets).reshape(-1),), vals.reshape(-1), accumulate=True).reshape(B, -1)
+    scattered_lone = torch.stack([torch.zeros(n * n, dtype=vals.dtype, device=dev).index_put_(
+        (idx,), v, accumulate=True) for v in vals])
+    probe = dict(
+        n=n, batch=B, edges=E, torch=torch.__version__,
+        potrf_lone_vs_potrfBatched_bitwise=same(batched, lone),
+        potrf_lone_vs_potrfBatched_max_diff=float((batched - lone).abs().max()),
+        trsm_lone_vs_batched_bitwise=same(tri, tri_lone),
+        trsm_lone_vs_batched_max_diff=float((tri - tri_lone).abs().max()),
+        matmul_3x4_4x4_bitwise=same(chain(J34, D44), per_lane(chain, J34, D44)),
+        matmul_gram_7x7_bitwise=same(gram(J77), per_lane(gram, J77)),
+        matmul_row_7x7_bitwise=same(row(J77, r7), per_lane(row, J77, r7)),
+        index_put_offsets_vs_lone_bitwise=same(scattered, scattered_lone),
+        **timings,
+    )
+    if not probe["index_put_offsets_vs_lone_bitwise"]:
+        raise AssertionError(f"pose_graph_batch: the batched index_put_ sums an instance in "
+                             f"another order than alone: {probe}")
+    return probe
+
+
+def _lanes_against_serial(batch_state, serial_states, batch_counts, serial_counts) -> dict:
+    """Counts, and the largest difference and bitwise equality of every
+    array, of each serially solved lane against its lane of the batch."""
+    diffs = [max(float(np.abs(b - s).max(initial=0.0)) for b, s in zip(batch_state(k), serial_states[k]))
+             for k in range(len(serial_states))]
+    bitwise = [all(np.array_equal(b, s) for b, s in zip(batch_state(k), serial_states[k]))
+               for k in range(len(serial_states))]
+    return dict(counts_equal=[int(batch_counts[k]) == int(serial_counts[k])
+                              for k in range(len(serial_states))],
+                max_abs_diff=max(diffs), lanes_bitwise=int(sum(bitwise)),
+                lanes_compared=len(serial_states))
+
+
+def _pose_graph_batch(dev, name: str, smi: str) -> None:
+    """``solve_batch`` in float64 (plain PyTorch ops, no port kernel): the
+    80-pose fixture at B = BATCH_LANES with seeded resampled measurements,
+    SERIAL_LANES of them solved one by one (every count equal, poses
+    within BATCH_POSE_TOL); a 500-pose SE(2) Manhattan world at B =
+    BATCH_2D_LANES; the Monte-Carlo ring at B = MC_BATCH to the JAX test's
+    bounds; and the batch-invariance probe of the 564-row system. A lane
+    is held to its serial solve by counts and BATCH_POSE_TOL; how many
+    lanes match bit for bit is reported."""
+    import torch
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.core.pose import np_axis_angle_to_quat
+    from nonlinear_optimizer_for_slam_tpu_torch.io import g2o
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers import pose_graph as pg
+    from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
+
+    ck.reset_launches()
+    probe = _batch_probe(dev)
+    opts = port.Options().replace(max_iterations=500)
+    LOOP, ODOM = pg.ConstraintType.LOOP, pg.ConstraintType.ODOMETRY
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, (torch.cuda.max_memory_allocated() - before) / 1e9
+
+    # ---- the 80-pose fixture, B lanes of resampled measurements -----------
+    _, noisy, constraints = testing.generate_pose_graph_fixture()
+    rng = np.random.default_rng(SEED + 31)
+    E = len(constraints)
+    t0_ = np.stack([c["relative_pose"].translation for c in constraints])
+    R0 = np.stack([c["relative_pose"].rotation for c in constraints])
+    lane_t = t0_ + 0.01 * rng.normal(size=(BATCH_LANES, E, 3))
+    lane_R = [[R0[e] @ port.Pose.from_quat_trans(np_axis_angle_to_quat(w), None).rotation
+               for e, w in enumerate(0.002 * rng.normal(size=(E, 3)))] for _ in range(BATCH_LANES)]
+    lane_q = np.stack([[port.Pose(R, t).quaternion() for R, t in zip(Rs, ts)]
+                       for Rs, ts in zip(lane_R, lane_t)])
+
+    def build(lane=None):
+        opt = pg.PoseGraphOptimizer(switch_penalty=0.03, device=dev)
+        for i, p in enumerate(noisy):
+            opt.set_pose(i, p)
+        opt.set_pose_constant(0)
+        for e, c in enumerate(constraints):
+            rel = c["relative_pose"] if lane is None else port.Pose(lane_R[lane][e], lane_t[lane, e])
+            opt.set_constraint(c["reference_index"], c["query_index"], rel,
+                               LOOP if c["is_loop"] else ODOM)
+        return opt
+
+    (pos_b, quat_b, sw_b, sum_b), batch_ms, batch_gb = timed(lambda: build().solve_batch(
+        relative_translations=lane_t, relative_quaternions=lane_q, options=opts))
+    serial, serial_counts, serial_ms = [], [], []
+    for lane in range(SERIAL_LANES):
+        opt = build(lane)
+        (summary, sw), ms, _ = timed(lambda: opt.solve(opts))
+        serial.append(_pg_state(opt, range(80)) + (sw,))
+        serial_counts.append(int(summary.iterations))
+        serial_ms.append(ms)
+    # a lane's quaternions through Pose as get_pose() returns them
+    via_pose = lambda quat: np.stack([port.Pose.from_quat_trans(q, None).quaternion() for q in quat])
+    fixture = _lanes_against_serial(lambda k: (pos_b[k], via_pose(quat_b[k]), sw_b[k]), serial,
+                                    sum_b.iterations, serial_counts)
+    fixture.update(batch=BATCH_LANES, unknowns=7 * 80 + 4, batch_wall_ms=batch_ms,
+                   batch_ms_per_solve=batch_ms / BATCH_LANES, batch_peak_memory_gb=batch_gb,
+                   serial_ms_per_solve=statistics.mean(serial_ms),
+                   lm_iterations_min_max=[int(sum_b.iterations.min()), int(sum_b.iterations.max())],
+                   all_converged=bool(np.all(sum_b.converged)))
+
+    # ---- a 500-pose SE(2) Manhattan world ----------------------------------
+    graph, _ = testing.generate_manhattan_g2o(n_poses=500)
+    path = os.path.join(REPO, "build", "manhattan500.g2o")
+    g2o.write_g2o(path, graph)
+    base = g2o.load_pose_graph(path, solver="dense", device=dev)
+    base.initialize(method="chordal")
+    start = {vid: base.get_pose(vid) for vid in base.pose_indices()}
+    cons = base.constraints()
+    rel0 = np.stack([c["relative_xyt"] for c in cons])
+    rels = rel0[None] + np.array([0.01, 0.01, 0.002]) * rng.normal(size=(BATCH_2D_LANES,) + rel0.shape)
+    (xyt_b, sw2_b, sum2_b), batch2_ms, batch2_gb = timed(
+        lambda: base.solve_batch(relative_xyt=rels, options=opts))
+    serial2, serial2_counts, serial2_ms = [], [], []
+    for lane in range(SERIAL_2D_LANES):
+        opt = pg.PoseGraphOptimizer2D(switch_penalty=base.switch_penalty, device=dev)
+        for vid, xyt in start.items():
+            opt.set_pose(vid, xyt)
+        for vid in graph.fixed or {min(graph.vertices)}:  # load_pose_graph's gauge
+            opt.set_pose_constant(vid)
+        for e, c in enumerate(cons):
+            opt.set_constraint(c["reference_index"], c["query_index"], rels[lane, e], c["type"],
+                               sqrt_info=c["sqrt_info"])
+        (summary, sw), ms, _ = timed(lambda: opt.solve(opts))
+        serial2.append((_pg2d_state(opt), sw))
+        serial2_counts.append(int(summary.iterations))
+        serial2_ms.append(ms)
+    manhattan = _lanes_against_serial(lambda k: (xyt_b[k], sw2_b[k]), serial2,
+                                      sum2_b.iterations, serial2_counts)
+    manhattan.update(batch=BATCH_2D_LANES, poses=len(start), edges=len(cons),
+                     unknowns=3 * len(start) + sw2_b.shape[1], batch_wall_ms=batch2_ms,
+                     batch_ms_per_solve=batch2_ms / BATCH_2D_LANES, batch_peak_memory_gb=batch2_gb,
+                     serial_ms_per_solve=statistics.mean(serial2_ms),
+                     lm_iterations_min_max=[int(sum2_b.iterations.min()), int(sum2_b.iterations.max())])
+
+    # ---- the Monte-Carlo ring: B = 768 draws against covariance() --------
+    P = 8
+    ang = 2 * np.pi * np.arange(P) / P
+    pos = np.stack([np.cos(ang), np.sin(ang), 0.05 * np.arange(P)], axis=1)
+    rots = [port.Pose.from_axis_angle(a, [0.0, 0.0, 1.0]).rotation for a in ang]
+    pairs = [(i, i + 1) for i in range(P - 1)] + [(0, 4)]
+    rels_mc = [(rots[i].T @ (pos[j] - pos[i]), rots[i].T @ rots[j]) for i, j in pairs]
+    ring = pg.PoseGraphOptimizer(device=dev)
+    for i in range(P):
+        ring.set_pose(i, port.Pose(rots[i], pos[i]))
+    ring.set_pose_constant(0)
+    for (i, j), (t, R) in zip(pairs, rels_mc):
+        ring.set_constraint(i, j, port.Pose(R, t), ODOM,
+                            sqrt_info=np.array([1.0 / MC_SIGMA_T, 1.0 / MC_SIGMA_R]))
+    mc_opts = port.Options().replace(max_iterations=30)
+    ring.solve(mc_opts)
+    cov = ring.covariance()
+    mrng = np.random.default_rng(42)
+    ts = np.empty((MC_BATCH, len(pairs), 3))
+    qs = np.empty((MC_BATCH, len(pairs), 4))
+    q_rel = np.stack([port.Pose(R, t).quaternion() for t, R in rels_mc])
+    t_rel = np.stack([t for t, _ in rels_mc])
+    for b in range(MC_BATCH):
+        ts[b] = t_rel + MC_SIGMA_T * mrng.standard_normal(t_rel.shape)
+        dq = np.stack([np_axis_angle_to_quat(w) for w in MC_SIGMA_R * mrng.standard_normal(t_rel.shape)])
+        qs[b] = _quat_mul(q_rel, dq)
+    (bpos, bquat, _, bsum), mc_ms, mc_gb = timed(lambda: ring.solve_batch(
+        relative_translations=ts, relative_quaternions=qs, options=mc_opts))
+    true_q = np.stack([port.Pose(rots[i], pos[i]).quaternion() for i in range(P)])
+    monte_carlo = dict(batch=MC_BATCH, all_converged=bool(np.all(bsum.converged)), wall_ms=mc_ms,
+                       peak_memory_gb=mc_gb, poses={})
+    for i in (3, P - 1):
+        qi = bquat[:, i] * np.sign(bquat[:, i, :1])
+        conj = true_q[i] * np.array([1.0, -1.0, -1.0, -1.0])
+        dth = 2.0 * _quat_mul(np.broadcast_to(conj, qi.shape), qi)[:, 1:]
+        x = np.concatenate([bpos[:, i] - pos[i], dth], axis=1)
+        x = x - x.mean(axis=0)
+        sample = (x.T @ x) / (MC_BATCH - 1)
+        ratio = np.diag(sample) / np.diag(cov[i])
+        monte_carlo["poses"][i] = dict(
+            frobenius_rel_err=float(np.linalg.norm(sample - cov[i]) / np.linalg.norm(cov[i])),
+            diag_ratio_min=float(ratio.min()), diag_ratio_max=float(ratio.max()))
+
+    _no_port_kernels("pose_graph_batch")
+    failures = []
+    for label, lanes in (("fixture80", fixture), ("manhattan500", manhattan)):
+        if not all(lanes["counts_equal"]) or lanes["max_abs_diff"] > BATCH_POSE_TOL:
+            failures.append(label)
+    if not fixture["all_converged"]:
+        failures.append("fixture80 converged")
+    if not monte_carlo["all_converged"] or any(
+            m["frobenius_rel_err"] >= 0.25 or m["diag_ratio_min"] <= 0.75 or m["diag_ratio_max"] >= 1.3
+            for m in monte_carlo["poses"].values()):
+        failures.append("monte_carlo")
+    if failures:
+        raise AssertionError(f"pose_graph_batch: {failures}: {fixture} {manhattan} {monte_carlo}")
+    emit("pose_graph_batch", dtype="float64", pose_tol=BATCH_POSE_TOL, fixture80=fixture,
+         manhattan500=manhattan, monte_carlo=monte_carlo, batch_invariance_probe=probe,
+         port_kernel_launches=0, device=name, nvidia_smi=smi)
 
 
 def _evaluations(summaries) -> int:

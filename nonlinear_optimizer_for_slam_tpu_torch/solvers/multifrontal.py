@@ -39,8 +39,16 @@ a dummy slot that is sliced off) and adds the two children of a front in
 a fixed order. The plan's index arrays are host numpy; their device
 copies are made once per device and cached on the plan.
 
-Used by ``solvers/pose_graph.py`` (solver="sparse", SE(3) and SE(2));
-generic over the per-vertex block dimension d.
+  3. The SELECTED INVERSE (:func:`selected_inverse_diag`,
+     :func:`selected_inverse_pairs`): the Takahashi recurrence top-down
+     over the same fronts, one batched level per depth, each child's
+     boundary covariance gathered from its parent's front through the
+     extend-add's column map. It gives the per-vertex diagonal blocks of
+     A^{-1} (and requested edge blocks) at the cost of one factorization.
+
+Used by ``solvers/pose_graph.py`` (solver="sparse" and the sparse
+marginal covariances, SE(3) and SE(2)); generic over the per-vertex block
+dimension d.
 """
 
 from __future__ import annotations
@@ -100,6 +108,8 @@ class Plan:
     _device_maps: Dict[torch.device, tuple] = dataclasses.field(
         default_factory=dict, repr=False
     )
+    # each vertex's (depth, front, interior slot), for the selected inverse
+    _vertex_slots: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
     @property
     def num_levels(self) -> int:
@@ -434,6 +444,7 @@ class _DepthMaps(NamedTuple):
     ch_front: Tensor  # (nC, 1) child index, for the extend-add placement
     ch_cols: Tensor  # (nC, nbc * d) parent scalar column; pads >= m
     bnd_pid: Tensor  # (nF, nb)
+    parent_of: Tensor  # (nF,) front of the parent depth holding each front
 
 
 def _device_maps(plan: Plan, device: torch.device):
@@ -449,8 +460,14 @@ def _device_maps(plan: Plan, device: torch.device):
     up = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
     rng_d = np.arange(d, dtype=np.int64)
     maps = []
-    for dp in plan.depths:
+    for dep, dp in enumerate(plan.depths):
         m = (dp.ni + dp.nb) * d
+        parent_of = np.zeros(dp.num_fronts, np.int64)
+        if dep:
+            child_of = plan.depths[dep - 1].child_of
+            for k in range(2):
+                real = child_of[:, k] < dp.num_fronts  # the dummy child is nF
+                parent_of[child_of[real, k]] = np.flatnonzero(real)
         rows = dp.asm_r.astype(np.int64)[:, None] * d + rng_d  # (na, d)
         cols = dp.asm_c.astype(np.int64)[:, None] * d + rng_d
         flat = (
@@ -472,6 +489,7 @@ def _device_maps(plan: Plan, device: torch.device):
                 ch_front=up(np.arange(nC)[:, None]),
                 ch_cols=up(ch_cols),
                 bnd_pid=up(dp.bnd_pid),
+                parent_of=up(parent_of),
             )
         )
     cached = (
@@ -684,28 +702,151 @@ def solve(
 
 
 # ---------------------------------------------------------------------------
-# selected inverse (covariance): not ported yet
+# selected inverse (covariance)
 # ---------------------------------------------------------------------------
 
-_SELECTED_INVERSE = (
-    "is not ported to the PyTorch package yet: it comes with "
-    "covariance() (ROADMAP A.11.2)"
-)
+
+def _vertex_slots(plan: Plan):
+    """Host lookup of each vertex's (depth, front, interior slot), built
+    once and cached on the plan."""
+    if plan._vertex_slots is None:
+        vdep = np.full(plan.P, -1, np.int64)
+        vfront = np.full(plan.P, -1, np.int64)
+        vslot = np.full(plan.P, -1, np.int64)
+        for dep, dp in enumerate(plan.depths):
+            vdep[dp.va_pid] = dep
+            vfront[dp.va_pid] = dp.va_f
+            vslot[dp.va_pid] = dp.va_slot
+        plan._vertex_slots = (vdep, vfront, vslot)
+    return plan._vertex_slots
 
 
 def selected_inverse_pairs(plan: Plan, fact, pair_a, pair_b):
-    """Diagonal and requested off-diagonal blocks of A^{-1} (not ported
-    yet, ROADMAP A.11.2)."""
-    raise NotImplementedError(f"multifrontal.selected_inverse_pairs {_SELECTED_INVERSE}")
+    """Diagonal blocks (P, d, d) of A^{-1} and the off-diagonal blocks
+    Sigma[a, b] (npairs, d, d) of the requested vertex pairs.
+
+    The pairs must be edges of the graph given to :func:`symbolic`: the
+    filled pattern of the factorization then contains them (when the
+    first-eliminated endpoint is interior in its front, the other endpoint
+    is interior in the same front or among its boundary vars, and the
+    Takahashi recurrence forms the whole front covariance). One top-down
+    sweep shared with the diagonal extraction, on the device; the host
+    only sorts the requests by depth."""
+    d = plan.d
+    pair_a = np.asarray(pair_a, np.int64)
+    pair_b = np.asarray(pair_b, np.int64)
+    npairs = len(pair_a)
+    vdep, vfront, vslot = _vertex_slots(plan)
+
+    # per-depth request lists: (front, slot_row, slot_col, out_idx, T?)
+    req = [[] for _ in range(plan.num_levels)]
+    for k in range(npairs):
+        a, b = int(pair_a[k]), int(pair_b[k])
+        trans = vdep[b] > vdep[a]  # the deeper vertex is eliminated first
+        if trans:
+            a, b = b, a
+        dep = int(vdep[a])
+        dp = plan.depths[dep]
+        f, sa = int(vfront[a]), int(vslot[a])
+        if vdep[b] == dep and vfront[b] == f:
+            sb = int(vslot[b])
+        else:
+            hits = np.flatnonzero(dp.bnd_pid[f] == b)
+            if len(hits) == 0:
+                raise ValueError(
+                    f"selected_inverse_pairs: pair ({pair_a[k]}, "
+                    f"{pair_b[k]}) is not in the factorization's filled "
+                    "pattern — pass only edges of the symbolic graph"
+                )
+            sb = dp.ni + int(hits[0])
+        req[dep].append((f, sa, sb, k, trans))
+
+    L0 = fact[0][0]
+    dtype, device = L0.dtype, L0.device
+    up = lambda a, **kw: torch.as_tensor(np.asarray(a), device=device, **kw)
+    out = torch.zeros((plan.P, d, d), dtype=dtype, device=device)
+    out_pairs = torch.zeros((npairs, d, d), dtype=dtype, device=device)
+    Sig_prev = None
+    for dep in range(plan.num_levels):
+        Sig_front = _takahashi_front_cov(plan, fact, dep, Sig_prev, dtype)
+        _diag_blocks(plan, dep, Sig_front, out)
+        if req[dep]:
+            rf, ra, rb, ridx, rtr = (np.asarray(col) for col in zip(*req[dep]))
+            dp = plan.depths[dep]
+            nblk = dp.ni + dp.nb
+            blk = Sig_front.reshape(dp.num_fronts, nblk, d, nblk, d)[up(rf), up(ra), :, up(rb), :]
+            blk = torch.where(up(rtr, dtype=torch.bool)[:, None, None], blk.mT, blk)
+            out_pairs[up(ridx)] = blk
+        Sig_prev = Sig_front
+    return out, out_pairs
 
 
 def _takahashi_front_cov(plan: Plan, fact, dep: int, Sig_prev, dtype):
-    """One depth of the Takahashi recurrence (not ported yet, ROADMAP
-    A.11.2)."""
-    raise NotImplementedError(f"multifrontal._takahashi_front_cov {_SELECTED_INVERSE}")
+    """One depth of the Takahashi recurrence: the (nF, m, m) front
+    covariances at ``dep`` from the parent depth's ``Sig_prev`` (shared by
+    the diagonal and pairwise sweeps).
+
+    The parent's covariance at a child's boundary is a gather through the
+    extend-add's child-to-parent column map (``_DepthMaps.ch_cols`` of the
+    parent depth), with the pad slots (>= m) reading a zero border: the
+    JAX package forms it as one-hot selection products, a TPU measure."""
+    dp = plan.depths[dep]
+    d = plan.d
+    L11, W = fact[dep]
+    device = L11.device
+    mi = dp.ni * d
+    eye = torch.eye(mi, dtype=dtype, device=device).expand(dp.num_fronts, mi, mi)
+    Linv = torch.linalg.solve_triangular(L11, eye, upper=False)
+    Sig11 = Linv.mT @ Linv  # L11^-T L11^-1
+    if not dp.nb:
+        return Sig11
+    _, _, maps = _device_maps(plan, device)
+    pdm = maps[dep - 1]
+    # zero border of d rows and columns: the pad slots' column index
+    Sig_par = torch.nn.functional.pad(Sig_prev, (0, d, 0, d))[maps[dep].parent_of]
+    cols = pdm.ch_cols
+    Sig_bnd = Sig_par[pdm.ch_front[:, :, None], cols[:, :, None], cols[:, None, :]]
+    G = torch.linalg.solve_triangular(L11.mT, W, upper=True)  # L11^-T W
+    GS = G @ Sig_bnd
+    Sig11 = Sig11 + GS @ G.mT
+    return torch.cat(
+        [torch.cat([Sig11, -GS], dim=2), torch.cat([-GS.mT, Sig_bnd], dim=2)], dim=1
+    )
+
+
+def _diag_blocks(plan: Plan, dep: int, Sig_front: Tensor, out: Tensor) -> None:
+    """Write the (d, d) diagonal blocks of the interior vertices of depth
+    ``dep`` from its front covariances into ``out`` (P, d, d)."""
+    dp = plan.depths[dep]
+    if not len(dp.va_pid):
+        return
+    d = plan.d
+    nblk = dp.ni + dp.nb
+    dm = _device_maps(plan, Sig_front.device)[2][dep]
+    blocks = Sig_front.reshape(dp.num_fronts, nblk, d, nblk, d)[
+        dm.va_f, dm.va_slot, :, dm.va_slot, :
+    ]
+    out[dm.va_pid] = blocks
 
 
 def selected_inverse_diag(plan: Plan, fact) -> Tensor:
-    """Per-vertex diagonal blocks of A^{-1} (not ported yet, ROADMAP
-    A.11.2)."""
-    raise NotImplementedError(f"multifrontal.selected_inverse_diag {_SELECTED_INVERSE}")
+    """Per-vertex diagonal (d, d) blocks of A^{-1}: the multifrontal
+    selected inverse (Takahashi on the separator tree), top-down:
+
+        Sigma_root = (L L^T)^{-1}
+        per front:  G = L11^{-T} W
+                    Sigma_11 = L11^{-T} L11^{-1} + G Sigma_bnd G^T
+                    Sigma_12 = -G Sigma_bnd
+
+    where Sigma_bnd is gathered from the parent front's covariance through
+    the extend-add's child-to-parent map. One batched level per tree
+    depth, on the device with no host read, in the factor's dtype; cost
+    and memory match one factorization. Pass the ``fact`` returned by
+    :func:`factor`. Returns (P, d, d)."""
+    L0 = fact[0][0]
+    out = torch.zeros((plan.P, plan.d, plan.d), dtype=L0.dtype, device=L0.device)
+    Sig_prev = None  # parent-depth front covariances (nF, m, m)
+    for dep in range(plan.num_levels):
+        Sig_prev = _takahashi_front_cov(plan, fact, dep, Sig_prev, L0.dtype)
+        _diag_blocks(plan, dep, Sig_prev, out)
+    return out

@@ -28,7 +28,12 @@ preconditioned CG path. "auto" picks among them (:func:`select_solver`).
 ``PoseGraphOptimizer2D`` is the SE(2) counterpart (x, y, theta poses, the
 g2o EDGE_SE2 factor with the same switchable loops) with the dense,
 banded, sparse and CG paths; ``initialize()`` on both optimizers runs the
-spanning-tree or chordal initializer of ``solvers/graph_init.py``.
+spanning-tree or chordal initializer of ``solvers/graph_init.py``. Both
+also answer ``covariance()`` (marginal pose blocks of the inverse
+Gauss-Newton information, by a dense inverse, the banded selected-inverse
+recurrence or the multifrontal selected inverse) and ``solve_batch()`` (B
+instances of one topology on the dense path at once, each following its
+serial solve).
 
 Every sum of per-edge contributions into per-pose rows that may see the
 same row twice is ``index_put_`` with ``accumulate=True``, which sums in
@@ -62,11 +67,6 @@ from ..ops.relative_pose import (
 from . import block_tridiag, lm, multifrontal
 
 Tensor = torch.Tensor
-
-# Not ported yet: named in each NotImplementedError.
-_COVARIANCE = "is not ported to the PyTorch package yet (ROADMAP A.11.2)"
-_SOLVE_BATCH = "is not ported to the PyTorch package yet (ROADMAP A.11.3)"
-
 
 class ConstraintType:
     """Reference: pose_graph_optimizer/types.h:11-13."""
@@ -233,8 +233,9 @@ class _Graph:
         return _scatter_add(out, self.pose_rows, torch.cat([contrib_ref, contrib_qry]))
 
     def linearize(self, pose_params: Tensor, switches: Tensor):
-        """Residuals, gauge-masked Jacobian blocks and the cost, with the
-        optional Ceres-style robust loss over each edge's squared norm."""
+        """Residuals, gauge-masked Jacobian blocks and each edge's cost
+        (E,), with the optional Ceres-style robust loss over each edge's
+        squared norm."""
         if self.L:
             sw_full = switches[self.loop_slot]
         else:
@@ -253,14 +254,14 @@ class _Graph:
         J_query = J_query * self.free_qry[:, None, None]
         if self.edge_loss is not None:
             rho, w, _ = self.edge_loss.evaluate(torch.sum(r * r, dim=1))
-            cost = torch.sum(rho)
+            cost = rho
             sqrt_w = torch.sqrt(w)
             r = r * sqrt_w[:, None]
             J_ref = J_ref * sqrt_w[:, None, None]
             J_query = J_query * sqrt_w[:, None, None]
             J_s = J_s * sqrt_w[:, None]
         else:
-            cost = torch.sum(r * r)
+            cost = torch.sum(r * r, dim=1)
         return r, J_ref, J_query, J_s, cost
 
     def split_quadratic(self, accumulate_pose=None):
@@ -273,13 +274,13 @@ class _Graph:
 
         def eval_quadratic(params):
             pose_params, switches = params
-            r, J_ref, J_query, J_s, cost = self.linearize(pose_params, switches)
+            r, J_ref, J_query, J_s, cost_e = self.linearize(pose_params, switches)
             g_p = accumulate_pose(_btv(J_ref, r), _btv(J_query, r))
             d_p = accumulate_pose(torch.sum(J_ref * J_ref, dim=1),
                                   torch.sum(J_query * J_query, dim=1))
             d_s = self.per_switch(torch.sum(J_s * J_s, dim=1))
             g_s = self.per_switch(torch.sum(J_s * r, dim=1))
-            return (J_ref, J_query, J_s, d_p, d_s), (g_p, g_s), cost
+            return (J_ref, J_query, J_s, d_p, d_s), (g_p, g_s), torch.sum(cost_e)
 
         return eval_quadratic
 
@@ -330,67 +331,107 @@ def _solve_split(eval_quadratic, solve_linear, free_mask, pose0, switches0, opti
 # ---------------------------------------------------------------------------
 
 
+def _instances(edges, B: int, P: int):
+    """B disjoint copies of one topology as one graph: instance b's pose
+    indices are offset by b P, per-instance measurements ((B, E, ...)
+    fields) are flattened instance by instance and the shared fields
+    repeated. A graph with shared measurements at B = 1 is itself."""
+    measured = ("relative_xyt",) if isinstance(edges, PoseGraph2DEdges) else (
+        "relative_translations", "relative_quaternions")
+    fields = edges._asdict()
+    if B == 1 and fields[measured[0]].dim() == 2:
+        return edges
+    offset = P * torch.arange(B, device=edges.reference_indices.device)[:, None]
+    for name, v in fields.items():
+        if v is None:
+            continue
+        if name in ("reference_indices", "query_indices"):
+            fields[name] = (v[None] + offset).reshape(-1)
+        elif name in measured:
+            fields[name] = v.expand((B,) + v.shape[-2:]).reshape((-1,) + v.shape[-1:])
+        else:
+            fields[name] = v.repeat((B,) + (1,) * (v.dim() - 1))
+    return type(edges)(**fields)
+
+
 def _pose_graph_solve(
-    pose0,  # (P, k): [position (3), quaternion (4)] per pose, or (x, y, theta)
-    switches0,  # (L,)
-    edges,  # PoseGraphEdges or PoseGraph2DEdges
+    pose0,  # (B, P, k): [position (3), quaternion (4)] per pose, or (x, y, theta)
+    switches0,  # (B, L)
+    edges,  # PoseGraphEdges or PoseGraph2DEdges; measurements (E, ...) or (B, E, ...)
     free_mask,  # (P,) 1.0 = free pose, 0.0 = constant (gauge-fixed)
     switch_penalty: float,
     edge_loss,  # optional LossFunction robustifying each edge block
     num_poses: int,
     num_loops: int,
     options: Options,
-    prior_sqrt=None,  # (6B, 6B) sqrt-information over TANGENT coords
-    prior_mean=None,  # (B, 7) prior linearization point [p_lin, q_lin(unit)]
-    prior_sel=None,  # (B,) pose indices the prior couples
-    prior_offset=None,  # (6B,) residual offset c: r_p = S dphi(x) + c
+    prior_sqrt=None,  # (6n, 6n) sqrt-information over TANGENT coords
+    prior_mean=None,  # (n, 7) prior linearization point [p_lin, q_lin(unit)]
+    prior_sel=None,  # (n,) pose indices the prior couples
+    prior_offset=None,  # (6n,) residual offset c: r_p = S dphi(x) + c
     floor: float = 1e-8,  # Tikhonov floor on every diagonal entry
 ):
-    """Dense direct path: block assembly of the (kP+L)^2 normal matrix
-    (k = 7 for SE(3), 3 for SE(2)). Each edge adds four k x k pose blocks
-    and, for loops, a switch row and column at its block coordinates.
+    """Dense direct path for B instances of one topology (the serial solve
+    is B = 1): block assembly of B (kP+L)^2 normal matrices (k = 7 for
+    SE(3), 3 for SE(2)). Each edge adds four k x k pose blocks and, for
+    loops, a switch row and column at its block coordinates.
 
-    Parameter layout: [pose_0, ..., pose_{P-1} | switches]
+    Parameter layout per instance: [pose_0, ..., pose_{P-1} | switches]
     (pose-interleaved, so an edge's columns are two contiguous k-spans).
-    Returns (pose params (P, k), switches, summary)."""
-    P, L = num_poses, num_loops
-    k = pose0.shape[1]
+    The B instances share the edges, gauge, priors and weights; each has
+    its own start, measurements, lambda and done flag (``lm.solve_batch``).
+    One ``index_put_(accumulate=True)`` assembles the whole batch: instance
+    b's flat indices are offset by b (kP+L)^2, and the stable sort by index
+    keeps each instance's repeated entries in its serial order. A lane is
+    not its serial solve bit for bit on the H100: cuSOLVER's batched
+    Cholesky, the batched triangular solves and some small batched matmuls
+    of the linearization round otherwise than at B = 1 (ROADMAP §C).
+    Returns (pose params (B, P, k), switches (B, L), summary with a
+    leading B)."""
+    Bt, P, k = pose0.shape
+    L = num_loops
     dim = k * P + L
-    graph = _Graph(edges, free_mask, P, L, switch_penalty, edge_loss)
-    dtype, device = graph.dtype, graph.device
-    E = graph.E
+    dtype, device = free_mask.dtype, free_mask.device
+    graph = _Graph(_instances(edges, Bt, P), free_mask.repeat(Bt), Bt * P, Bt * L,
+                   switch_penalty, edge_loss)
+    E = edges.num_edges
 
     col_mask = torch.cat(
         [free_mask.repeat_interleave(k), torch.ones(L, dtype=dtype, device=device)]
     )
     ks = torch.arange(k, device=device)
-    rows_ref = k * graph.ref_i[:, None] + ks  # (E, k)
-    rows_qry = k * graph.qry_i[:, None] + ks
-    col_sw = k * P + graph.loop_slot  # (E,)
-    # the block coordinates of every H entry an edge adds, flattened in
-    # the order ref-ref, ref-qry, qry-ref, qry-qry (then the switch terms)
+    rows_ref = k * edges.reference_indices[:, None] + ks  # (E, k)
+    rows_qry = k * edges.query_indices[:, None] + ks
+    col_sw = k * P + _loop_slot(edges.is_loop, L)  # (E,)
+    # the block coordinates of every H entry an edge adds, in the order
+    # ref-ref, ref-qry, qry-ref, qry-qry (then the switch terms); each kind
+    # lists the instances in turn
     blk_r = [rows_ref[:, :, None], rows_ref[:, :, None], rows_qry[:, :, None], rows_qry[:, :, None]]
     blk_c = [rows_ref[:, None, :], rows_qry[:, None, :], rows_ref[:, None, :], rows_qry[:, None, :]]
-    h_rows = [r.expand(E, k, k).reshape(-1) for r in blk_r]
-    h_cols = [c.expand(E, k, k).reshape(-1) for c in blk_c]
+    h_local = [(r * dim + c).expand(E, k, k).reshape(-1) for r, c in zip(blk_r, blk_c)]
     if L > 0:
         swk = col_sw[:, None].expand(E, k)
-        h_rows += [rows_ref.reshape(-1), swk.reshape(-1), rows_qry.reshape(-1),
-                   swk.reshape(-1), col_sw]
-        h_cols += [swk.reshape(-1), rows_ref.reshape(-1), swk.reshape(-1),
-                   rows_qry.reshape(-1), col_sw]
-    h_rows, h_cols = torch.cat(h_rows), torch.cat(h_cols)
-    g_rows = torch.cat([rows_ref.reshape(-1), rows_qry.reshape(-1)] + ([col_sw] if L else []))
+        h_local += [(rows_ref * dim + swk).reshape(-1), (swk * dim + rows_ref).reshape(-1),
+                    (rows_qry * dim + swk).reshape(-1), (swk * dim + rows_qry).reshape(-1),
+                    col_sw * dim + col_sw]
+    g_local = [rows_ref.reshape(-1), rows_qry.reshape(-1)] + ([col_sw] if L else [])
+    instance = torch.arange(Bt, device=device)[:, None]
+    h_index = torch.cat([(instance * dim * dim + h).reshape(-1) for h in h_local])
+    g_index = torch.cat([(instance * dim + g).reshape(-1) for g in g_local])
 
     if prior_sqrt is not None:
-        B = prior_sel.shape[0]
+        n = prior_sel.shape[0]
         prior_rows = (7 * prior_sel[:, None] + ks).reshape(-1)
+        g_prior = (instance * dim + prior_rows).reshape(-1)
+        h_prior = (instance[:, :, None] * dim * dim + prior_rows[:, None] * dim
+                   + prior_rows[None, :]).reshape(-1)
         eye3 = torch.eye(3, dtype=dtype, device=device)
+        q_lin_conj = lie.quat_conjugate(prior_mean[:, 3:])
 
     def quad(params):
         (x,) = params
-        pose = x[: k * P].reshape(P, k)
-        r, J_ref, J_query, J_s, cost = graph.linearize(pose, x[k * P:])
+        pose = x[:, : k * P].reshape(Bt * P, k)
+        r, J_ref, J_query, J_s, cost_e = graph.linearize(pose, x[:, k * P:].reshape(-1))
+        cost = torch.sum(cost_e.reshape(Bt, E), dim=1)
         B_rq = J_ref.mT @ J_query
         h_vals = [J_ref.mT @ J_ref, B_rq, B_rq.mT, J_query.mT @ J_query]
         g_vals = [_btv(J_ref, r), _btv(J_query, r)]
@@ -399,10 +440,12 @@ def _pose_graph_solve(
             b_qs = _btv(J_query, J_s)
             h_vals += [b_rs, b_rs, b_qs, b_qs, torch.sum(J_s * J_s, dim=1)]
             g_vals.append(torch.sum(J_s * r, dim=1))
-        H = torch.zeros((dim, dim), dtype=dtype, device=device)
-        _scatter_add(H, (h_rows, h_cols), torch.cat([v.reshape(-1) for v in h_vals]))
-        g = torch.zeros(dim, dtype=dtype, device=device)
-        _scatter_add(g, g_rows, torch.cat([v.reshape(-1) for v in g_vals]))
+        H = torch.zeros(Bt * dim * dim, dtype=dtype, device=device)
+        _scatter_add(H, h_index, torch.cat([v.reshape(-1) for v in h_vals]))
+        H = H.reshape(Bt, dim, dim)
+        g = torch.zeros(Bt * dim, dtype=dtype, device=device)
+        _scatter_add(g, g_index, torch.cat([v.reshape(-1) for v in g_vals]))
+        g = g.reshape(Bt, dim)
 
         if prior_sqrt is not None:
             # Gaussian prior in TANGENT (6-DoF local) coordinates:
@@ -411,25 +454,25 @@ def _pose_graph_solve(
             # (the fixed-lag smoother's marginalization product); tangent,
             # not raw-ambient, and an affine offset, not a mean shift (see
             # the JAX package's _pose_graph_solve for why).
-            pb = pose[prior_sel, :3]
-            qb = pose[prior_sel, 3:]
-            q_lin_conj = lie.quat_conjugate(prior_mean[:, 3:])
-            A = lie.quat_multiply(q_lin_conj, lie.quat_normalize(qb))
-            dphi = torch.cat([pb - prior_mean[:, :3], 2.0 * A[:, 1:]], dim=1)
-            r_p = prior_sqrt @ dphi.reshape(-1) + prior_offset
+            pose_b = pose.reshape(Bt, P, k)
+            pb = pose_b[:, prior_sel, :3]
+            qb = pose_b[:, prior_sel, 3:]
+            A = lie.quat_multiply(q_lin_conj.expand_as(qb), lie.quat_normalize(qb))
+            dphi = torch.cat([pb - prior_mean[:, :3], 2.0 * A[..., 1:]], dim=-1)
+            r_p = _bmv(prior_sqrt, dphi.reshape(Bt, -1)) + prior_offset
             # d dphi / d(ambient x): identity translation rows; rotation
             # rows 2 [L(q_lin^-1) Dn(q)]_vec (3x4 per pose)
-            dq = 2.0 * (_quat_left_matrix(q_lin_conj) @ _normalize_jacobian(qb))[:, 1:, :]
-            T = torch.zeros((6 * B, 7 * B), dtype=dtype, device=device)
-            for i in range(B):  # the prior support is small
-                T[6 * i:6 * i + 3, 7 * i:7 * i + 3] = eye3
-                T[6 * i + 3:6 * i + 6, 7 * i + 3:7 * i + 7] = dq[i]
-            J_p = prior_sqrt @ T  # (6B, 7B)
-            cost = cost + torch.sum(r_p * r_p)
-            _scatter_add(g, prior_rows, J_p.T @ r_p)
-            _scatter_add(H, (prior_rows[:, None], prior_rows[None, :]), J_p.T @ J_p)
+            dq = 2.0 * (_quat_left_matrix(q_lin_conj) @ _normalize_jacobian(qb))[..., 1:, :]
+            T = torch.zeros((Bt, 6 * n, 7 * n), dtype=dtype, device=device)
+            for i in range(n):  # the prior support is small
+                T[:, 6 * i:6 * i + 3, 7 * i:7 * i + 3] = eye3
+                T[:, 6 * i + 3:6 * i + 6, 7 * i + 3:7 * i + 7] = dq[:, i]
+            J_p = prior_sqrt @ T  # (B, 6n, 7n)
+            cost = cost + torch.sum(r_p * r_p, dim=1)
+            _scatter_add(g.view(-1), g_prior, _btv(J_p, r_p).reshape(-1))
+            _scatter_add(H.view(-1), h_prior, (J_p.mT @ J_p).reshape(-1))
 
-        diagonal = H.diagonal()
+        diagonal = H.diagonal(dim1=-2, dim2=-1)
         # fixed-pose rows stay nonsingular (their g is 0, so delta is 0)
         diagonal.add_(1.0 - col_mask)
         # Tikhonov floor: at an all-identity-quaternion state every
@@ -444,8 +487,9 @@ def _pose_graph_solve(
         (x,) = params
         return (x + delta * col_mask,)
 
-    (x,), summary = lm.solve(quad, retract, (torch.cat([pose0.reshape(-1), switches0]),), options)
-    return x[: k * P].reshape(P, k), x[k * P:], summary
+    x0 = torch.cat([pose0.reshape(Bt, -1), switches0], dim=1)
+    (x,), summary = lm.solve_batch(quad, retract, (x0,), options)
+    return x[:, : k * P].reshape(Bt, P, k), x[:, k * P:], summary
 
 
 # ---------------------------------------------------------------------------
@@ -1104,6 +1148,200 @@ def select_solver(
 
 
 # ---------------------------------------------------------------------------
+# covariance: pose-diagonal blocks of the inverse Gauss-Newton information
+# ---------------------------------------------------------------------------
+
+
+def _edge_information_blocks(J_ref: Tensor, J_qry: Tensor, J_s: Tensor):
+    """Per-edge pose information blocks with EXACT per-edge switch
+    elimination (the rank-1 Schur downdate, undamped; the solve paths
+    carry the damped form in ``_Graph.eliminate_switches``). Shared by the
+    banded and sparse covariance paths. Returns (B_aa, B_bb, B_ab) in
+    (ref, query) row/col convention."""
+    B_aa = J_ref.mT @ J_ref
+    B_bb = J_qry.mT @ J_qry
+    B_ab = J_ref.mT @ J_qry
+    gamma = torch.sum(J_s * J_s, dim=1)
+    loop = gamma > 0
+    one = torch.ones_like(gamma)
+    ig = torch.where(loop, one / torch.where(loop, gamma, one), torch.zeros_like(gamma))
+    ig = ig[:, None, None]
+    Jac = _btv(J_ref, J_s)
+    Jbc = _btv(J_qry, J_s)
+    B_aa = B_aa - ig * (Jac[:, :, None] * Jac[:, None, :])
+    B_bb = B_bb - ig * (Jbc[:, :, None] * Jbc[:, None, :])
+    B_ab = B_ab - ig * (Jac[:, :, None] * Jbc[:, None, :])
+    return B_aa, B_bb, B_ab
+
+
+def _block_tridiag_selected_inverse(D: Tensor, O: Tensor) -> Tensor:
+    """Diagonal superblocks (K, m, m) of the inverse of a block-tridiagonal
+    SPD matrix (D (K, m, m) diagonal panels, O (K-1, m, m) upper couplings)
+    by the exact selected-inverse recurrence:
+
+        Lam_1 = D_1,  Lam_k = D_k - O_{k-1}^T Lam_{k-1}^{-1} O_{k-1}
+        Sig_K = Lam_K^{-1},  Sig_k = Lam_k^{-1} + G_k Sig_{k+1} G_k^T
+        with G_k = Lam_k^{-1} O_k.
+
+    O(K m^3) on the device in the panels' dtype: K sequential steps of
+    m x m panel algebra each way (the JAX package runs it in host float64
+    numpy). The covariance engine of the 3-D and SE(2) banded paths."""
+    K = D.shape[0]
+    Lam_inv = [torch.linalg.inv(D[0])]
+    for k in range(1, K):
+        Lam = D[k] - O[k - 1].mT @ Lam_inv[k - 1] @ O[k - 1]
+        Lam_inv.append(torch.linalg.inv(Lam))
+    sig = [Lam_inv[K - 1]]
+    for k in range(K - 2, -1, -1):
+        G = Lam_inv[k] @ O[k]
+        sig.append(Lam_inv[k] + G @ sig[-1] @ G.mT)
+    return torch.stack(sig[::-1])
+
+
+def _banded_covariance_fits(P: int, bandwidth: int, d: int) -> bool:
+    """The JAX package's panel-memory guard of the banded covariance,
+    2 K (s d)^2 8 bytes <= 4 GiB with s = max(bandwidth, 8): a figure kept
+    for selection parity (its retune is ROADMAP A.11.6)."""
+    s = max(bandwidth, 8)
+    K = max(1, -(-P // s))
+    return 2 * K * (s * d) ** 2 * 8 <= 4 << 30
+
+
+def _batch_size(batch_size, *arrays) -> int:
+    """B of a batched solve: the leading size of every per-instance array
+    and ``batch_size``, which must agree."""
+    sizes = {np.shape(a)[0] for a in arrays if a is not None}
+    if batch_size is not None:
+        sizes.add(int(batch_size))
+    if len(sizes) != 1:
+        raise ValueError(
+            f"inconsistent or missing batch size: {sorted(sizes)}; pass "
+            "batch_size= or at least one (B, ...) per-instance array"
+        )
+    return sizes.pop()
+
+
+def _batched_input(B: int, dtype, device):
+    """``batched(arr, default, shape, name)``: a per-instance input as a
+    (B,) + shape tensor, or ``default`` broadcast to it when omitted."""
+
+    def batched(arr, default, shape, name):
+        if arr is None:
+            default = torch.as_tensor(np.asarray(default), dtype=dtype, device=device)
+            return default.expand((B,) + shape)
+        a = np.array(arr, np.float64)  # a copy: a broadcast view is read-only
+        if a.shape != (B,) + shape:
+            raise ValueError(f"{name} must be (B,) + {shape}; got {a.shape}")
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return batched
+
+
+def _fetch(*trees):
+    """Trees of device tensors (tuples, NamedTuples such as a Summary) as
+    trees of numpy arrays of the same dtypes, by one device-to-host copy."""
+    leaves = [x for tree in trees for x in lm.tree_leaves(tree)]
+    host = torch.cat([x.reshape(-1).to(torch.float64) for x in leaves]).cpu().numpy()
+    arrays, at = [], 0
+    for x in leaves:
+        np_dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
+        arrays.append(host[at:at + x.numel()].reshape(tuple(x.shape)).astype(np_dtype))
+        at += x.numel()
+    it = iter(arrays)
+    return tuple(lm.tree_map(lambda _: next(it), tree) for tree in trees)
+
+
+_SINGULAR = (
+    "covariance: information matrix is singular — the graph is "
+    "under-constrained"
+)
+
+
+def _marginal_blocks(method: str, J_ref: Tensor, J_qry: Tensor, J_s: Tensor,
+                     ref_i: Tensor, qry_i: Tensor, loop_slot: Tensor, free: np.ndarray,
+                     want: np.ndarray, L: int, rcm=None, plan=None, prior_blocks=None,
+                     singular: str = _SINGULAR) -> np.ndarray:
+    """(n, d, d) host float64 marginal covariance blocks of the poses at
+    registry positions ``want``, from the gauge-masked per-edge Jacobian
+    blocks on the pose chart (d columns) and the switch column ``J_s``;
+    constant poses get zero blocks. One device-to-host copy.
+
+    "dense" inverts the (dP+L)^2 information with its constant-pose rows
+    and columns dropped (``torch.linalg.inv_ex``: LU, as the JAX package's
+    ``np.linalg.inv``; a singular matrix raises ValueError(``singular``)),
+    ``prior_blocks`` {position: (d, d)} added; "banded" eliminates each
+    switch exactly and runs the selected-inverse recurrence over the RCM
+    superblocks ``rcm`` = (perm, inv, s); "sparse" eliminates the switches
+    and runs the multifrontal selected inverse over ``plan``."""
+    P = len(free)
+    d = J_ref.shape[-1]
+    dtype, device = J_ref.dtype, J_ref.device
+    up = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    want = np.asarray(want, np.int64)
+    if method == "dense":
+        dim = d * P + L
+        ds = torch.arange(d, device=device)
+        rows_ref = d * ref_i[:, None] + ds  # (E, d)
+        rows_qry = d * qry_i[:, None] + ds
+        cross = J_ref.mT @ J_qry
+        index = [rows_ref[:, :, None] * dim + rows_ref[:, None, :],
+                 rows_qry[:, :, None] * dim + rows_qry[:, None, :],
+                 rows_ref[:, :, None] * dim + rows_qry[:, None, :],
+                 rows_qry[:, :, None] * dim + rows_ref[:, None, :]]
+        values = [J_ref.mT @ J_ref, J_qry.mT @ J_qry, cross, cross.mT]
+        if L:
+            cols_sw = (d * P + loop_slot)[:, None]  # (E, 1)
+            b_rs = _btv(J_ref, J_s)
+            b_qs = _btv(J_qry, J_s)
+            index += [rows_ref * dim + cols_sw, cols_sw * dim + rows_ref,
+                      rows_qry * dim + cols_sw, cols_sw * dim + rows_qry,
+                      cols_sw * dim + cols_sw]
+            values += [b_rs, b_rs, b_qs, b_qs, torch.sum(J_s * J_s, dim=1)]
+        H = torch.zeros(dim * dim, dtype=dtype, device=device)
+        _scatter_add(H, torch.cat([i.reshape(-1) for i in index]),
+                     torch.cat([v.reshape(-1) for v in values]))
+        H = H.reshape(dim, dim)
+        for i, block in (prior_blocks or {}).items():
+            H[d * i:d * i + d, d * i:d * i + d] += torch.as_tensor(block, dtype=dtype, device=device)
+        # drop the constant poses' rows and columns, invert
+        keep = np.concatenate([np.repeat(free > 0, d), np.ones(L, bool)])
+        kept = up(np.flatnonzero(keep))
+        Sigma, info = torch.linalg.inv_ex(H[kept][:, kept])
+        if int(info) != 0:
+            raise ValueError(singular)
+        # each wanted free pose's rows in the reduced matrix
+        blocks = torch.zeros((len(want), d, d), dtype=dtype, device=device)
+        wanted_free = np.flatnonzero(free[want] > 0)
+        if len(wanted_free):
+            start = d * (np.cumsum(free > 0) - 1)[want[wanted_free]]
+            rows = up(start[:, None] + np.arange(d))
+            blocks[up(wanted_free)] = Sigma[rows[:, :, None], rows[:, None, :]]
+    else:
+        B_aa, B_bb, B_ab = _edge_information_blocks(J_ref, J_qry, J_s)
+        gauge = torch.as_tensor(1.0 - free, dtype=dtype, device=device)
+        if method == "banded":
+            perm, inv, s = rcm
+            ref_p, qry_p = up(inv)[ref_i], up(inv)[qry_i]
+            swap = (qry_p < ref_p)[:, None, None]
+            lo, hi = torch.minimum(ref_p, qry_p), torch.maximum(ref_p, qry_p)
+            # (row, col) conventions: B_ab is (row ref, col qry); gauge-fixed
+            # poses and padding keep an identity diagonal
+            K, m, D, O = _scatter_banded_blocks(
+                P, d, s, lo, hi, torch.where(swap, B_bb, B_aa), torch.where(swap, B_aa, B_bb),
+                torch.where(swap, B_ab, B_ab.mT), gauge[up(perm)][:, None].expand(P, d),
+            )
+            sig = _block_tridiag_selected_inverse(D, O).reshape(K, s, d, s, d)
+            q = inv[want]
+            blocks = sig[up(q // s), up(q % s), :, up(q % s), :]
+        else:
+            fact = multifrontal.factor(plan, B_aa, B_bb, B_ab, gauge[:, None].expand(P, d))
+            blocks = multifrontal.selected_inverse_diag(plan, fact)[up(want)]
+    keep_want = torch.as_tensor(free[want] > 0, device=device)[:, None, None]
+    blocks = torch.where(keep_want, blocks, torch.zeros_like(blocks))
+    return blocks.cpu().numpy().astype(np.float64)
+
+
+# ---------------------------------------------------------------------------
 # the optimizer
 # ---------------------------------------------------------------------------
 
@@ -1256,8 +1494,9 @@ class PoseGraphOptimizer:
         return [dict(c) for c in self._constraints]
 
     # -- flattening caches ---------------------------------------------------
-    def _edges(self, ref_idx, query_idx, rel_t, rel_q, is_loop, sqrt_info) -> PoseGraphEdges:
-        dev, dtype = self.device, self.dtype
+    def _edges(self, ref_idx, query_idx, rel_t, rel_q, is_loop, sqrt_info,
+               dtype=None) -> PoseGraphEdges:
+        dev, dtype = self.device, dtype or self.dtype
         return PoseGraphEdges(
             reference_indices=torch.as_tensor(np.asarray(ref_idx, np.int64), device=dev),
             query_indices=torch.as_tensor(np.asarray(query_idx, np.int64), device=dev),
@@ -1487,13 +1726,6 @@ class PoseGraphOptimizer:
             i = index_of[pi]
             self.set_pose(pi, Pose(np_quat_to_rotmat(q[i]), t[i]))
 
-    # -- not ported yet -------------------------------------------------------
-    def covariance(self, *args, **kwargs):
-        raise NotImplementedError(f"PoseGraphOptimizer.covariance {_COVARIANCE}")
-
-    def solve_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"PoseGraphOptimizer.solve_batch {_SOLVE_BATCH}")
-
     # -- solve ---------------------------------------------------------------
     def solve(self, options: Optional[Options] = None) -> Tuple[lm.Summary, np.ndarray]:
         """Optimize all registered poses; write results back into the
@@ -1574,9 +1806,10 @@ class PoseGraphOptimizer:
             )
         else:
             pose, sw, summary = _pose_graph_solve(
-                pose0, switches0, flat["edges_dev"], tensor(free), *common, P, L, options,
-                *self._prior_args(index_of),
+                pose0[None], switches0[None], flat["edges_dev"], tensor(free), *common, P, L,
+                options, *self._prior_args(index_of),
             )
+            pose, sw, summary = pose[0], sw[0], lm.instance(summary, 0)
         pos, quat = pose[:, :3], pose[:, 3:]
         # one device-to-host copy of the solved state
         state = torch.cat([pos.reshape(-1), quat.reshape(-1), sw]).cpu().numpy()
@@ -1609,6 +1842,239 @@ class PoseGraphOptimizer:
             torch.as_tensor(np.array([index_of[pi] for pi in sel], np.int64), device=dev),
             torch.zeros(6 * B, dtype=dtype, device=dev),
         )
+
+    # -- batched serving solves ----------------------------------------------
+    def solve_batch(
+        self,
+        batch_size: Optional[int] = None,
+        initial_positions=None,  # (B, P, 3), pose_indices() order
+        initial_quaternions=None,  # (B, P, 4) wxyz
+        relative_translations=None,  # (B, E, 3), constraints() order
+        relative_quaternions=None,  # (B, E, 4) wxyz
+        options: Optional[Options] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, lm.Summary]:
+        """Solve B independent instances sharing THIS graph's topology at
+        once on the dense direct path (serving mode: Monte-Carlo and
+        multi-hypothesis back ends).
+
+        All instances share the edge structure: endpoint indices, loop
+        flags, per-edge sqrt-information, gauge fixing, switch penalty,
+        edge loss, and any unary priors. Per-instance inputs (each
+        optional; this graph's own state and measurements are broadcast
+        for whatever is omitted):
+
+        - ``initial_positions`` / ``initial_quaternions``: starting
+          estimates, ordered like :meth:`pose_indices`;
+        - ``relative_translations`` / ``relative_quaternions``: edge
+          measurements, ordered like :meth:`constraints`.
+
+        Each instance keeps its own lambda and done flag, and follows its
+        serial ``solve()`` to float64 roundoff (``_pose_graph_solve``).
+        ``batch_size`` is required only when every
+        per-instance input is omitted. The registry is NOT written back;
+        returns ``(positions (B, P, 3), quaternions (B, P, 4)
+        renormalized, switches (B, L), summary)`` as numpy arrays, the
+        summary's fields with a leading B, from one device-to-host copy."""
+        if self.solver not in ("dense", "auto"):
+            raise ValueError(
+                "solve_batch runs on the dense direct path; construct the "
+                "optimizer with solver='dense' (CG/tridiag batching would "
+                "multiply their iteration-count compromises, not amortize "
+                "them)"
+            )
+        if self.solver == "auto" and 7 * len(self._poses) > 6000:
+            raise ValueError(
+                "solve_batch materializes B dense (7P+L)^2 systems — at "
+                f"{len(self._poses)} poses that is far past the dense "
+                "envelope 'auto' would pick for solve(); batch serving is "
+                "a small-graph shape (construct with solver='dense' "
+                "explicitly to override)"
+            )
+        if options is None:
+            options = Options().replace(max_iterations=500)
+        if not self._constraints:
+            raise ValueError(
+                "PoseGraphOptimizer.solve_batch: no constraints registered"
+            )
+        flat = self._flatten()
+        indices, index_of = flat["indices"], flat["index_of"]
+        P, E, L = flat["P"], flat["E"], flat["L"]
+        B = _batch_size(batch_size, initial_positions, initial_quaternions,
+                        relative_translations, relative_quaternions)
+        batched = _batched_input(B, self.dtype, self.device)
+        pos0, quat0 = self._packed(indices, index_of)
+        pos_b = batched(initial_positions, pos0, (P, 3), "initial_positions")
+        quat_b = batched(initial_quaternions, quat0, (P, 4), "initial_quaternions")
+        rel_t_b = batched(relative_translations, flat["rel_t"], (E, 3), "relative_translations")
+        rel_q_b = batched(relative_quaternions, flat["rel_q"], (E, 4), "relative_quaternions")
+
+        free = np.ones(P)
+        for pi in self._constant:
+            free[index_of[pi]] = 0.0
+        edges_b = flat["edges_dev"]._replace(
+            relative_translations=rel_t_b, relative_quaternions=rel_q_b
+        )
+        pose, sw, summary = _pose_graph_solve(
+            torch.cat([pos_b, quat_b], dim=2),
+            torch.ones((B, L), dtype=self.dtype, device=self.device),
+            edges_b, torch.as_tensor(free, dtype=self.dtype, device=self.device),
+            self.switch_penalty, self.edge_loss, P, L, options, *self._prior_args(index_of),
+        )
+        (pose, sw), summary = _fetch((pose, sw), summary)
+        pos = pose[..., :3].astype(np.float64)
+        quat = pose[..., 3:].astype(np.float64)
+        quat = quat / np.linalg.norm(quat, axis=2, keepdims=True)
+        return pos, quat, sw.astype(np.float64), summary
+
+    # -- marginal covariances ------------------------------------------------
+    def _tangent_edge_blocks(self, flat):
+        """Linearization of every constraint on the 6-DoF tangent chart at
+        the current estimates (unit quaternions), on the device in
+        float64, with the switch values of the last ``solve()``
+        (ones before any solve) and the gauge mask; shared by the three
+        covariance paths. Returns (J_ref6, J_qry6, J_s, the ``_Graph``,
+        free (P,), unit quaternions (P, 4) and Tq (P, 4, 3), the last
+        three host numpy)."""
+        index_of = flat["index_of"]
+        P, L = flat["P"], flat["L"]
+        pos, quat = self._packed(flat["indices"], index_of)
+        pos = pos.astype(np.float64)
+        quat = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+        sw = getattr(self, "_last_switches", None)
+        if sw is None or len(sw) != L:
+            sw = np.ones(L)
+        free = np.ones(P)
+        for pi in self._constant:
+            free[index_of[pi]] = 0.0
+        tensor = lambda a: torch.as_tensor(a, dtype=torch.float64, device=self.device)
+        edges = flat["edges_dev"]
+        if self.dtype != torch.float64:  # the registry's float64 measurements
+            edges = self._edges(flat["ref_idx"], flat["query_idx"], flat["rel_t"], flat["rel_q"],
+                                flat["is_loop"], flat["sqrt_info"], dtype=torch.float64)
+        graph = _Graph(edges, tensor(free), P, L, self.switch_penalty, self.edge_loss)
+        _, J_ref, J_qry, J_s, _ = graph.linearize(tensor(np.concatenate([pos, quat], 1)), tensor(sw))
+        # chain the ambient (E, 7, 7) blocks onto the per-pose tangent chart
+        # dq = n(q) (x) (0, dtheta / 2)
+        Tq = 0.5 * lie.np_quat_left_matrix(quat)[:, :, 1:]  # (P, 4, 3)
+        Tq_dev = tensor(Tq)
+        J_ref = torch.cat([J_ref[:, :, :3], J_ref[:, :, 3:] @ Tq_dev[graph.ref_i]], dim=2)
+        J_qry = torch.cat([J_qry[:, :, :3], J_qry[:, :, 3:] @ Tq_dev[graph.qry_i]], dim=2)
+        return J_ref, J_qry, J_s, graph, free, quat, Tq
+
+    def _covariance_sparse_plan(self, flat):
+        """d=6 tangent-chart dissection plan for the selected-inverse
+        covariance (separate from the solver's d=7 ambient plan; cached per
+        topology)."""
+        if flat.get("sparse_cov") is not None:
+            return flat["sparse_cov"]
+        pos, _ = self._packed(flat["indices"], flat["index_of"])
+        flat["sparse_cov"] = multifrontal.symbolic(
+            flat["P"],
+            flat["ref_idx"].astype(np.int64),
+            flat["query_idx"].astype(np.int64),
+            d=6,
+            coords=np.asarray(pos, np.float64),
+            leaf_size=16,
+        )
+        return flat["sparse_cov"]
+
+    def covariance(
+        self,
+        indices: Optional[List[int]] = None,
+        method: str = "auto",
+    ) -> Dict[int, np.ndarray]:
+        """Marginal 6x6 TANGENT-space covariance blocks per pose.
+
+        Linearizes every constraint (with the switch values learned by the
+        last ``solve()``, ones before any solve) at the current estimates,
+        assembles the Gauss-Newton information over the 6-DoF local chart
+        per free pose (dp; dtheta with q -> n(q) (x) (1, dtheta/2)) plus
+        the loop switch variables, and returns the pose-diagonal blocks of
+        its inverse. Constant (gauge) poses get a zero block.
+
+        ``method``: "dense" inverts the full (6P+L)^2 information
+        (O(dim^3); priors included); "banded" computes the same blocks by
+        the exact block-tridiagonal selected-inverse recurrence over RCM
+        superblocks (O(K (6s)^3)); "sparse" by the multifrontal selected
+        inverse over a nested-dissection plan (``solvers/multifrontal.py``);
+        switch variables are eliminated exactly per edge first in both.
+        "auto" (default): dense up to 500 poses or with priors, else banded
+        when its panels pass the memory guard, else sparse, else dense.
+        Everything runs on the optimizer's device in float64, with one
+        device-to-host copy of the requested blocks.
+
+        Returns {pose_index: (6, 6) ndarray}."""
+        flat = self._flatten()
+        all_indices, index_of = flat["indices"], flat["index_of"]
+        P, E, L = flat["P"], flat["E"], flat["L"]
+        if E == 0:
+            raise ValueError("covariance: no constraints registered")
+        if not self._constant and not self._priors:
+            raise ValueError(
+                "covariance: gauge-free graph has unbounded covariance; "
+                "fix at least one pose with set_pose_constant() or anchor "
+                "one with set_prior()"
+            )
+        if method not in ("auto", "dense", "banded", "sparse"):
+            raise ValueError(f"unknown covariance method {method!r}")
+        if method == "auto":
+            if P <= 500 or self._priors:
+                method = "dense"
+            elif _banded_covariance_fits(P, self._rcm_cached(flat)[2], 6):
+                method = "banded"
+            else:
+                try:
+                    self._covariance_sparse_plan(flat)
+                    method = "sparse"
+                except ValueError:
+                    method = "dense"
+        if method in ("banded", "sparse") and self._priors:
+            raise ValueError(
+                f"covariance(method={method!r}) does not support "
+                "priors yet; use method='dense'"
+            )
+        rcm = plan = prior_blocks = None
+        if method == "banded":
+            perm, inv, bw = self._rcm_cached(flat)
+            if not _banded_covariance_fits(P, bw, 6):
+                raise ValueError(
+                    f"covariance(method='banded'): RCM bandwidth {bw} over "
+                    f"{P} poses needs tens of GB of host panels; use "
+                    "method='sparse' (multifrontal selected inverse)"
+                )
+            rcm = (perm, inv, max(bw, 8))
+        elif method == "sparse":
+            plan = self._covariance_sparse_plan(flat)
+        J_ref, J_qry, J_s, graph, free, quat, Tq = self._tangent_edge_blocks(flat)
+        if method == "dense" and self._priors:
+            # prior factors r_p = S dphi, chained onto the tangent chart at
+            # the current estimate: J_tan = S d(dphi)/d(ambient)
+            # blkdiag(I3, Tq) (the dense solver's prior block)
+            prior_blocks = {}
+            for pi, (mean, S) in self._priors.items():
+                i = index_of[pi]
+                q = quat[i]
+                q_lin = mean[3:] / np.linalg.norm(mean[3:])
+                Dn = np.eye(4) - np.outer(q, q)  # d(q/|q|)/dq at |q| = 1
+                dq = 2.0 * (lie.np_quat_left_matrix(lie.np_quat_conjugate(q_lin)) @ Dn)[1:, :]
+                T_amb = np.zeros((6, 7))
+                T_amb[:3, :3] = np.eye(3)
+                T_amb[3:, 3:] = dq
+                chart = np.zeros((7, 6))
+                chart[:3, :3] = np.eye(3)
+                chart[3:, 3:] = Tq[i]
+                J = S @ T_amb @ chart
+                prior_blocks[i] = J.T @ J
+        if indices is None:
+            indices = all_indices
+        want = np.array([index_of[pi] for pi in indices], np.int64)
+        blocks = _marginal_blocks(
+            method, J_ref, J_qry, J_s, graph.ref_i, graph.qry_i, graph.loop_slot, free, want,
+            L, rcm=rcm, plan=plan, prior_blocks=prior_blocks,
+            singular="covariance: information matrix is singular — the graph "
+            "is under-constrained (disconnected components or unobserved poses)",
+        )
+        return {pi: blocks[k] for k, pi in enumerate(indices)}
 
 
 # ----------------------------------------------------------------------------
@@ -1863,10 +2329,11 @@ class PoseGraphOptimizer2D:
                 continue
             self._poses[pi] = xyt[index_of[pi]].copy()
 
-    def _flat_2d(self):
+    def _flat_2d(self, dtype=None):
         """Pack the registry into solver arrays: (indices, index_of, P, L,
         xyt (P, 3), free (P,), ref (E,), qry (E,), is_loop (E,)) on the
-        host and the edges on the device."""
+        host and the edges on the device, in ``dtype`` (default the
+        optimizer's)."""
         indices = sorted(self._poses)
         index_of = {pi: i for i, pi in enumerate(indices)}
         P = len(indices)
@@ -1876,7 +2343,7 @@ class PoseGraphOptimizer2D:
         qry = np.array([index_of[c["query_index"]] for c in cs], np.int64)
         is_loop = np.array([1.0 if c["type"] == ConstraintType.LOOP else 0.0 for c in cs])
         L = int(is_loop.sum())
-        dev, dtype = self.device, self.dtype
+        dev, dtype = self.device, dtype or self.dtype
         tensor = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
         w3 = stack_sqrt_info([c["sqrt_info"] for c in cs], 3)
         edges = PoseGraph2DEdges(
@@ -1969,8 +2436,10 @@ class PoseGraphOptimizer2D:
             )
         else:
             out_xyt, sw, summary = _pose_graph_solve(
-                tensor(xyt), switches0, edges, tensor(free), *common, options, floor=1e-10,
+                tensor(xyt)[None], switches0[None], edges, tensor(free), *common, options,
+                floor=1e-10,
             )
+            out_xyt, sw, summary = out_xyt[0], sw[0], lm.instance(summary, 0)
         # one device-to-host copy of the solved state
         state = torch.cat([out_xyt.reshape(-1), sw]).cpu().numpy().astype(np.float64)
         out = state[: 3 * P].reshape(P, 3).copy()
@@ -1983,9 +2452,102 @@ class PoseGraphOptimizer2D:
         self._last_switches = sw.copy()
         return summary, sw
 
-    # -- not ported yet -------------------------------------------------------
-    def solve_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"PoseGraphOptimizer2D.solve_batch {_SOLVE_BATCH}")
+    def solve_batch(
+        self,
+        batch_size: Optional[int] = None,
+        initial_xyt=None,  # (B, P, 3), pose_indices() order
+        relative_xyt=None,  # (B, E, 3), constraints() order
+        options: Optional[Options] = None,
+    ):
+        """B independent instances sharing THIS graph's topology on the
+        dense direct path at once: the SE(2) analog of
+        :meth:`PoseGraphOptimizer.solve_batch` (which see: shared
+        topology, gauge and weights, per-instance starts and edge
+        measurements, registry NOT written back). Returns ``(xyt (B, P, 3)
+        theta-wrapped, switches (B, L), summary)``, numpy, from one
+        device-to-host copy."""
+        if self.solver not in ("dense", "auto"):
+            raise ValueError(
+                "solve_batch runs on the dense direct path; construct the "
+                "optimizer with solver='dense'"
+            )
+        if self.solver == "auto" and 3 * len(self._poses) > 6000:
+            raise ValueError(
+                "solve_batch materializes B dense (3P+L)^2 systems — at "
+                f"{len(self._poses)} poses that is far past the dense "
+                "envelope; construct with solver='dense' explicitly to "
+                "override"
+            )
+        if options is None:
+            options = Options().replace(max_iterations=500)
+        if not self._constraints:
+            raise ValueError(
+                "PoseGraphOptimizer2D.solve_batch: no constraints registered"
+            )
+        indices, index_of, P, L, xyt, free, _, _, _, edges = self._flat_2d()
+        E = edges.num_edges
+        B = _batch_size(batch_size, initial_xyt, relative_xyt)
+        batched = _batched_input(B, self.dtype, self.device)
+        xyt_b = batched(initial_xyt, xyt, (P, 3), "initial_xyt")
+        rel_b = batched(relative_xyt, edges.relative_xyt, (E, 3), "relative_xyt")
+        out_xyt, sw, summary = _pose_graph_solve(
+            xyt_b, torch.ones((B, L), dtype=self.dtype, device=self.device),
+            edges._replace(relative_xyt=rel_b),
+            torch.as_tensor(free, dtype=self.dtype, device=self.device),
+            self.switch_penalty, self.edge_loss, P, L, options, floor=1e-10,
+        )
+        (out, sw), summary = _fetch((out_xyt, sw), summary)
+        out = out.astype(np.float64)
+        out[:, :, 2] = np.arctan2(np.sin(out[:, :, 2]), np.cos(out[:, :, 2]))
+        return out, sw.astype(np.float64), summary
 
-    def covariance(self, *args, **kwargs):
-        raise NotImplementedError(f"PoseGraphOptimizer2D.covariance {_COVARIANCE}")
+    def covariance(
+        self,
+        indices: Optional[List[int]] = None,
+        method: str = "auto",
+    ) -> Dict[int, np.ndarray]:
+        """Marginal 3x3 (x, y, theta) covariance blocks per pose: the SE(2)
+        analog of :meth:`PoseGraphOptimizer.covariance` (which see; SE(2)
+        needs no tangent chart, the ambient coordinates are the chart),
+        linearized at the current estimates with the last solve's switch
+        values, on the optimizer's device in float64.
+
+        ``method``: "dense" (full (3P+L)^2 inverse), "banded" (RCM
+        superblock selected-inverse recurrence), "sparse" (multifrontal
+        selected inverse over the dissection tree), or "auto": dense up to
+        500 poses, else banded when its panels pass the memory guard, else
+        sparse. All return the same blocks to float64 roundoff."""
+        if method not in ("auto", "dense", "banded", "sparse"):
+            raise ValueError(f"unknown covariance method {method!r}")
+        if not self._constraints:
+            raise ValueError("covariance: no constraints registered")
+        if not self._constant:
+            raise ValueError(
+                "covariance: gauge-free graph has unbounded covariance; "
+                "fix at least one pose with set_pose_constant()"
+            )
+        indices_all, index_of, P, L, xyt, free, ref_np, qry_np, _, edges = self._flat_2d(
+            torch.float64)
+        last = getattr(self, "_last_switches", None)
+        if last is None or len(last) != L:
+            last = np.ones(L)
+        tensor = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64, device=self.device)
+        graph = _Graph(edges, tensor(free), P, L, self.switch_penalty, self.edge_loss)
+        _, J_ref, J_qry, J_s, _ = graph.linearize(tensor(xyt), tensor(last))
+
+        rcm = plan = None
+        if method == "auto" and P <= 500:
+            method = "dense"
+        if method in ("auto", "banded"):
+            perm, inv, bw = _rcm_perm_bandwidth(P, ref_np, qry_np)
+            if method == "auto":
+                method = "banded" if _banded_covariance_fits(P, bw, 3) else "sparse"
+            rcm = (perm, inv, max(bw, 8))
+        if method == "sparse":
+            plan = self._sparse_symbolic(P, ref_np, qry_np, xyt)
+        if indices is None:
+            indices = indices_all
+        want = np.array([index_of[pi] for pi in indices], np.int64)
+        blocks = _marginal_blocks(method, J_ref, J_qry, J_s, graph.ref_i, graph.qry_i,
+                                  graph.loop_slot, free, want, L, rcm=rcm, plan=plan)
+        return {pi: blocks[k] for k, pi in enumerate(indices)}

@@ -1,3 +1,3 @@
-from . import testing
+from . import evaluation, testing
 
-__all__ = ["testing"]
+__all__ = ["evaluation", "testing"]

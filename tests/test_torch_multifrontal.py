@@ -15,8 +15,8 @@
   against the dense product (rtol 1e-12).
 - a system that is not positive definite gives a NaN solution and does not
   raise; the plan's device index maps are built once per device.
-- the selected inverse and ``mesh=`` raise NotImplementedError naming
-  ROADMAP A.11.2 and A.8.
+- ``mesh=`` raises NotImplementedError naming ROADMAP A.8 (the selected
+  inverse is held in tests/test_torch_covariance.py).
 """
 
 import jax
@@ -263,11 +263,6 @@ def test_device_maps_are_built_once_per_device():
 def test_unported_parts_raise():
     ea, eb, B_aa, B_bb, B_ab, diag, b, _ = _random_block_system(6, 3, 2, seed=3)
     plan = tmf.symbolic(6, ea, eb, 2, leaf_size=16)
-    fact = tmf.factor(plan, *_t(B_aa, B_bb, B_ab, diag))
-    with pytest.raises(NotImplementedError, match="A.11.2"):
-        tmf.selected_inverse_diag(plan, fact)
-    with pytest.raises(NotImplementedError, match="A.11.2"):
-        tmf.selected_inverse_pairs(plan, fact, [0], [1])
     with pytest.raises(NotImplementedError, match="A.8"):
         tmf.factor(plan, *_t(B_aa, B_bb, B_ab, diag), mesh=object())
     with pytest.raises(NotImplementedError, match="A.8"):

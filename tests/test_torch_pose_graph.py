@@ -29,9 +29,8 @@ same. Also:
   a 120-pose chain with 40 corrections (the chunked Woodbury form, with a
   reversed and a doubled chain edge) by tridiag, against JAX (counts
   equal, poses within 1e-8);
-- the unported options raise NotImplementedError naming their ROADMAP
-  items (covariance A.11.2, solve_batch A.11.3, mesh= A.8), and the
-  ValueErrors are JAX's word for word.
+- the unported option raises NotImplementedError naming its ROADMAP item
+  (mesh= A.8), and the ValueErrors are JAX's word for word.
 """
 
 import numpy as np
@@ -409,10 +408,6 @@ def test_unported_options_raise(fixture):
     with pytest.raises(NotImplementedError, match="A.8"):
         tpg.PoseGraphOptimizer(solver="cg", mesh=object(), device="cpu")
     opt = _build("torch", fixture)
-    with pytest.raises(NotImplementedError, match="A.11.2"):
-        opt.covariance()
-    with pytest.raises(NotImplementedError, match="A.11.3"):
-        opt.solve_batch()
     # solver="sparse" and initialize() are ported: neither raises
     assert tpg.PoseGraphOptimizer(solver="sparse", device="cpu").solver == "sparse"
     opt.initialize(method="spanning_tree")

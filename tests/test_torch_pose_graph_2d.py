@@ -22,8 +22,8 @@ factor, 2-D g2o files) against the JAX package's.
   builds JAX's optimizer (information folded into the sqrt factor) and
   ``save_pose_graph`` writes JAX's text;
 - ``interop`` carries ``PoseGraph2DEdges`` and an SE(2) state both ways;
-- ``covariance`` and ``solve_batch`` raise NotImplementedError naming
-  ROADMAP A.11.2 and A.11.3; the ValueErrors are JAX's.
+- the ValueErrors are JAX's (``covariance`` and ``solve_batch`` are held
+  in tests/test_torch_covariance.py and tests/test_torch_pose_graph_batch.py).
 """
 
 import jax.numpy as jnp
@@ -336,10 +336,6 @@ def _error(fn):
 
 def test_unported_parts_raise_and_errors_match_jax(square):
     opt = _build("torch", square)
-    with pytest.raises(NotImplementedError, match="A.11.2"):
-        opt.covariance()
-    with pytest.raises(NotImplementedError, match="A.11.3"):
-        opt.solve_batch()
     for kw in (dict(solver="tridiag"), dict(cg_precond="bogus")):
         assert _error(lambda: tpg.PoseGraphOptimizer2D(device="cpu", **kw)) == _error(
             lambda: jpg.PoseGraphOptimizer2D(**kw))
