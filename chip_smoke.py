@@ -43,7 +43,14 @@ city against sparse) and the batched solves (the fixture at B = 256 with
 resampled measurements, 16 lanes against their serial solves; a 500-pose
 SE(2) world at B = 32; the Monte-Carlo ring at B = 768 against
 ``covariance()``; a probe of the lone and batched 564-row factor), in
-float64 and with no port kernel.
+float64 and with no port kernel. Last, the generic ``PoseOptimizer``
+(float64, the maha-simple correspondences with two priors, and a hand-eye
+problem) against the same solves on the CPU; two ranks spawned on the one
+card over gloo (host-staged partials) running every ``mesh=`` path (the
+four minimizers and the registrar through their kernels, CG and sparse)
+against the unsharded calls, with a one-rank NCCL group's maha6 solve
+bitwise the unsharded one; and ``utils.time_checker``'s ``device_time``
+and ``trace``.
 Every phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code.
 The line before the last is the ``kernels`` summary, the last line
@@ -842,7 +849,8 @@ def main() -> int:
     prof = _profile(run_reproj)
     reproj_kernels = {k: c for k, c in prof["port_kernels"].items() if "Reproj" in k}
     if sum(prof["port_kernels"].values()) != reproj_evals or len(reproj_kernels) != 1:
-        raise AssertionError(f"pnp_profile: port kernels {prof['port_kernels']} in "
+        raise AssertionError(f"pnp_profile: port kernels {prof['port_kernels']} in the trace, "
+                             f"ck.LAUNCHES {prof['port_launches']} in the profiled call, "
                              f"{reproj_evals} LM evaluations, want one reproj kernel each")
     emit("pnp_profile", device_kernels_per_lm_evaluation=prof["device_kernels"] / reproj_evals,
          port_kernels_per_lm_evaluation=sum(reproj_kernels.values()) / reproj_evals, **prof)
@@ -1352,6 +1360,14 @@ def main() -> int:
     _pose_graph_covariance(dev, name, smi, sphere, m3500, city)
     del sphere, m3500, city
     _pose_graph_batch(dev, name, smi)
+    # ---- slice 11: the generic PoseOptimizer, sharding, the time checker --
+    _problem_generic(dev, name, smi, matched, true_pose)
+    _sharded(dev, name, smi, dict(
+        matched=matched, planar_matched=planar_matched, reproj_data=reproj_data,
+        p2p_matched=p2p_matched, ndt_map=ndt_map, p2p_map=p2p_map, intrinsics=intrinsics,
+        local=local, local_planar=local_planar, p2p_start=p2p_start,
+    ))
+    _time_checker(dev, name, smi, matched)
 
     kernels = []
     for kernel in KERNEL_SHAPE:
@@ -2476,6 +2492,455 @@ def _pose_graph_batch(dev, name: str, smi: str) -> None:
          port_kernel_launches=0, device=name, nvidia_smi=smi)
 
 
+# ---- slice 11: the generic PoseOptimizer, sharding, the time checker --------
+
+# The generic PoseOptimizer on the card against the same solve on the CPU
+# port, both float64: the iteration counts are equal and the poses within
+# this bound (the two sum 18,712 float64 factors in different orders).
+PROBLEM_POSE_TOL = 1e-9
+# Two ranks of one process group on the one card, over gloo (NCCL refuses
+# two ranks on one device) with the (H, g, cost) partials staged through
+# host memory, and a one-rank NCCL group beside them.
+SHARDED_WORLD = 2
+# A sharded float32 solve against the unsharded one: the same kernel on
+# half the rows a rank, the two partials added after, so the sums round
+# otherwise; the counts are equal and the poses within 1e-5 (PR 11's runs
+# measured at most 3.7e-7, maha6's minimizer). In float64 (the pose
+# graph): CG's cost within rtol 1e-9 (the JAX test's) and poses 1e-6,
+# sparse (whose fronts each rank factors alone or in smaller batches) cost
+# rtol 1e-10 and poses 1e-9.
+SHARDED_POSE_TOL = {"maha6": 1e-5, "maha3c": 1e-5, "reproj": 1e-5, "p2p": 1e-5,
+                    "registrar_maha": 1e-5, "registrar_planar": 1e-5, "registrar_p2p": 1e-5,
+                    "cg": 1e-6, "sparse_m3500": 1e-9}
+SHARDED_COST_RTOL = {"cg": 1e-9, "sparse_m3500": 1e-10}
+
+
+def _problem_generic(dev, name: str, smi: str, matched, true_pose) -> None:
+    """``PoseOptimizer`` (float64) on the card over the first outer
+    iteration's 18,712 maha-simple correspondences under the exponential
+    loss, with translation and rotation priors at the true pose, against
+    the same solve on the CPU; then the hand-eye problem of
+    tests/test_problem.py (a user-defined functor, Jacobians by
+    ``torch.func.jacfwd``). No port kernel: the generic functors run the
+    plain factor code, as the JAX package's reach no Pallas kernel."""
+    import torch
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers import problem as gp
+
+    def ndt_problem(device):
+        problem = gp.Problem()
+        problem.add_residual_block(
+            gp.MahalanobisDistanceCostFunctor(matched.points, matched.means, matched.sqrt_infos,
+                                              matched.mask, device=device),
+            port.ExponentialLoss(1.0, 1.0),
+        )
+        problem.add_residual_block(
+            gp.TranslationDeltaCostFunctor(true_pose.translation, np.eye(3), device=device))
+        problem.add_residual_block(
+            gp.RotationDeltaCostFunctor(true_pose.rotation, np.eye(3), device=device))
+        return problem
+
+    def solve_both(make, options):
+        on_card = gp.PoseOptimizer(device=dev)
+        problem = make(dev)
+        pose, summary = on_card.solve(problem, options, port.Pose.identity())
+        cpu_pose, cpu_summary = gp.PoseOptimizer(device="cpu").solve(
+            make("cpu"), options, port.Pose.identity())
+        diff = float(np.abs(pose.matrix() - cpu_pose.matrix()).max())
+        if int(summary.iterations) != int(cpu_summary.iterations) or diff > PROBLEM_POSE_TOL:
+            raise AssertionError(
+                f"problem_generic: card {int(summary.iterations)} iterations, CPU "
+                f"{int(cpu_summary.iterations)}, pose difference {diff}")
+        walls = []  # the first solve above was the warm-up
+        for _ in range(5):
+            t0 = time.perf_counter()
+            on_card.solve(problem, options, port.Pose.identity())
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return pose, summary, diff, walls
+
+    ck.reset_launches()
+    options = gp.GenericOptions()
+    pose, summary, diff, walls = solve_both(ndt_problem, options)
+    # one inner solve on the first outer iteration's correspondences: the
+    # check is the CPU solve above; the distance to the true pose is shown
+    t_err = float(np.linalg.norm(pose.translation - true_pose.translation))
+    if not (bool(summary.converged) and np.isfinite(float(summary.final_cost))):
+        raise AssertionError(f"problem_generic: converged {bool(summary.converged)}, "
+                             f"cost {float(summary.final_cost)}")
+    ndt = dict(correspondences=int(matched.num_factors), iterations=int(summary.iterations),
+               final_cost=float(summary.final_cost), t_err_mm=t_err * 1e3,
+               pose_vs_cpu=diff, median_ms=statistics.median(walls), min_ms=min(walls),
+               max_ms=max(walls), ms_per_iteration=statistics.median(walls)
+               / (int(summary.iterations) + 1))
+
+    hand_eye, X = _hand_eye_problem()
+    est, he_summary, he_diff, he_walls = solve_both(hand_eye, gp.GenericOptions(max_iterations=100))
+    he_err = float(np.abs(est.matrix() - X.matrix()).max())
+    if he_err > 1e-8:
+        raise AssertionError(f"problem_generic: hand-eye estimate {he_err} from the truth")
+    _no_port_kernels("problem_generic")
+    emit("problem_generic", dtype="float64", runs=5, ndt_with_priors=ndt,
+         hand_eye={"pairs": 30, "iterations": int(he_summary.iterations),
+                   "error_vs_truth": he_err, "pose_vs_cpu": he_diff,
+                   "median_ms": statistics.median(he_walls)},
+         pose_tol=PROBLEM_POSE_TOL, port_kernel_launches=0, device=name, nvidia_smi=smi)
+
+
+def _hand_eye_problem():
+    """tests/test_problem.py's AX = XB calibration: 30 motion pairs from
+    seed 0, a chordal residual, Huber 0.05. Returns (a builder of the
+    Problem on a device, the true X)."""
+    import torch
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers import problem as gp
+
+    def exp_so3(w):
+        th = np.linalg.norm(w)
+        K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+        return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+    class HandEye(gp.CostFunction):
+        def __init__(self, arrays, device):
+            self.R_a, self.t_a, self.R_b, self.t_b = (
+                torch.as_tensor(a, device=device) for a in arrays)
+
+        def residuals(self, R, t):
+            rot = (self.R_a @ R - R @ self.R_b).reshape(len(self.t_a), 9)
+            trans = (torch.einsum("nij,j->ni", self.R_a, t) + self.t_a
+                     - torch.einsum("ij,nj->ni", R, self.t_b) - t)
+            return torch.cat([rot, trans], dim=1)
+
+    rng = np.random.default_rng(0)
+    X = port.Pose(exp_so3([0.2, -0.4, 0.7]), np.array([0.12, -0.05, 0.30]))
+    R_a = np.stack([exp_so3(rng.uniform(-1.2, 1.2, 3)) for _ in range(30)])
+    t_a = rng.uniform(-0.5, 0.5, (30, 3))
+    B = [X.inverse() * port.Pose(R_a[k], t_a[k]) * X for k in range(30)]
+    arrays = (R_a, t_a, np.stack([b.rotation for b in B]), np.stack([b.translation for b in B]))
+
+    def make(device):
+        problem = gp.Problem()
+        problem.add_residual_block(HandEye(arrays, device), port.HuberLoss(0.05))
+        return problem
+
+    return make, X
+
+
+def _sharded_inputs(fx: dict, work: str) -> dict:
+    """The arrays every rank loads (``inputs.npz`` in ``work``): the
+    smoke's correspondences, scan, maps and the M3500 start."""
+    arrays = {}
+    for key in ("matched", "planar_matched", "reproj_data", "p2p_matched"):
+        for field, value in zip(type(fx[key])._fields, fx[key]):
+            arrays[f"{key}/{field}"] = value.cpu().numpy()
+    for key in ("ndt_map", "p2p_map"):
+        for field in ("means", "sqrt_informations", "informations", "counts", "valid"):
+            arrays[f"{key}/{field}"] = getattr(fx[key], field)
+    intr = fx["intrinsics"]
+    arrays["intrinsics"] = np.array([intr.fx, intr.fy, intr.cx, intr.cy, intr.width, intr.height],
+                                    np.float64)
+    arrays["local"] = fx["local"]
+    arrays["local_planar"] = fx["local_planar"]
+    arrays["p2p_start"] = fx["p2p_start"].matrix()
+    ids = sorted(fx["m3500_initial"])
+    arrays["m3500/ids"] = np.array(ids)
+    arrays["m3500/xyt"] = np.stack([fx["m3500_initial"][k] for k in ids])
+    np.savez(os.path.join(work, "inputs.npz"), **arrays)
+    return arrays
+
+
+def _sharded_calls(dev, arrays: dict, m3500_path: str, mesh, only=None) -> dict:
+    """Every sharded path of the smoke on ``mesh`` (``None``: unsharded),
+    or the cases named in ``only``, each with the launch counts set to 0
+    just before it and read just after; each call timed after a warm-up
+    (CG and sparse: their one run). Returns {case: {numbers and arrays}}."""
+    import torch
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.io import g2o
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import mahalanobis, point_to_plane, reprojection
+    from nonlinear_optimizer_for_slam_tpu_torch.pipelines import ndt
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers import pose_graph as pg
+    from nonlinear_optimizer_for_slam_tpu_torch.utils import testing
+
+    on_dev = lambda key, cls: cls(*(torch.as_tensor(arrays[f"{key}/{f}"], device=dev)
+                                    for f in cls._fields))
+    maps = {key: ndt.NdtMap(*(arrays[f"{key}/{f}"] for f in
+                              ("means", "sqrt_informations", "informations", "counts", "valid")))
+            for key in ("ndt_map", "p2p_map")}
+    fx, fy, cx, cy, width, height = arrays["intrinsics"]
+    intrinsics = reprojection.CameraIntrinsics.create(fx, fy, cx, cy, width=int(width),
+                                                      height=int(height))
+    loss, opts, identity = port.ExponentialLoss(1.0, 1.0), port.Options(), port.Pose.identity()
+    size = 1 if mesh is None else mesh.size
+    out = {}
+
+    def run(case, kernel, fn, timed=True):
+        """``fn() -> (result fields, the count the kernel must equal)``."""
+        if only is not None and case not in only:
+            return
+        if timed:
+            fn()
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        fields, want = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in ck.LAUNCHES.items() if v}
+        if counts != ({kernel: want} if kernel else {}) or (kernel and want == 0):
+            raise AssertionError(f"sharded {case}: launches {counts}, want {kernel} = {want}")
+        out[case] = dict(fields, launches=want if kernel else 0, wall_ms=wall)
+
+    def minimizer(cls, data, *extra, start=identity):
+        # pad_multiple * size: the unsharded solve's padded rows
+        m = cls(pad_multiple=1024 // size, device=dev, mesh=mesh).set_loss_function(loss)
+        pose, summary = m.solve(opts, data, *extra, start)
+        n_eval = int((~torch.isnan(summary.records.cost)).sum())
+        return dict(pose=pose.matrix(), iterations=int(summary.iterations),
+                    final_cost=float(summary.final_cost), evaluations=n_eval), n_eval
+
+    MD, PD = mahalanobis.MahalanobisData, point_to_plane.PointToPlaneData
+    run("maha6", "maha6", lambda: minimizer(port.MahalanobisDistanceMinimizer, on_dev("matched", MD)))
+    run("maha3c", "maha3c", lambda: minimizer(port.MahalanobisDistanceMinimizer3DOF,
+                                              on_dev("planar_matched", MD)))
+    run("reproj", "reproj", lambda: minimizer(port.ReprojectionErrorMinimizer,
+                                              on_dev("reproj_data", reprojection.ReprojectionData),
+                                              intrinsics))
+    p2p_start = port.Pose.from_matrix(arrays["p2p_start"])
+    run("p2p", "p2p", lambda: minimizer(port.PointToPlaneMinimizer, on_dev("p2p_matched", PD),
+                                        start=p2p_start))
+
+    def register(key, start, scan="local", **kw):
+        reg = port.NdtRegistrar(maps[key], opts, loss, device=dev, mesh=mesh, **kw)
+        res = reg.register(arrays[scan], start)
+        return dict(pose=res.pose.matrix(), outer=res.outer_iterations,
+                    inner=res.inner_iterations, final_cost=res.final_cost,
+                    **reg.run_stats()), reg.run_stats()["steps"]
+
+    run("registrar_maha", "maha6", lambda: register("ndt_map", identity))
+    run("registrar_planar", "maha3", lambda: register("ndt_map", identity, scan="local_planar",
+                                                      planar=True))
+    run("registrar_p2p", "p2p", lambda: register("p2p_map", p2p_start, objective="p2p",
+                                                 max_thickness=0.05))
+
+    def graph_state(opt, summary, switches, poses):
+        return dict(iterations=int(summary.iterations), final_cost=float(summary.final_cost),
+                    poses=poses, switches=switches), 0
+
+    def cg():
+        _, noisy, constraints = testing.generate_pose_graph_fixture()
+        opt = pg.PoseGraphOptimizer(switch_penalty=0.03, solver="cg", device=dev, mesh=mesh)
+        for i, p in enumerate(noisy):
+            opt.set_pose(i, p)
+        opt.set_pose_constant(0)
+        for c in constraints:
+            kind = pg.ConstraintType.LOOP if c["is_loop"] else pg.ConstraintType.ODOMETRY
+            opt.set_constraint(c["reference_index"], c["query_index"], c["relative_pose"], kind)
+        summary, sw = opt.solve()
+        poses = np.stack([np.r_[opt.get_pose(i).translation, opt.get_pose(i).quaternion()]
+                          for i in range(80)])
+        return graph_state(opt, summary, sw, poses)
+
+    def sparse_m3500():
+        opt = g2o.load_pose_graph(m3500_path, solver="sparse", device=dev, mesh=mesh)
+        for vid, xyt in zip(arrays["m3500/ids"], arrays["m3500/xyt"]):
+            opt.set_pose(int(vid), xyt)
+        summary, sw = opt.solve(opts.replace(max_iterations=500))
+        return graph_state(opt, summary, sw, _pg2d_state(opt))
+
+    run("cg", None, cg, timed=False)
+    run("sparse_m3500", None, sparse_m3500, timed=False)
+    return out
+
+
+def _flat_results(results: dict) -> dict:
+    return {f"{case}/{k}": np.asarray(v) for case, fields in results.items()
+            for k, v in fields.items()}
+
+
+def _sharded_rank(rank: int, world: int, work: str) -> None:
+    """One rank of the smoke's two-rank world on the one card: join the
+    gloo group (``file://`` rendezvous in ``work``), run every sharded path
+    over it, and with rank 0 the maha6 minimizer over a one-rank NCCL
+    group; write ``rank{rank}.npz`` (or ``rank{rank}.err``)."""
+    import traceback
+
+    try:
+        sys.path.insert(0, REPO)
+        import torch
+        import torch.distributed as dist
+
+        from nonlinear_optimizer_for_slam_tpu_torch import parallel
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        dist.init_process_group("gloo", init_method="file://" + os.path.join(work, "rendezvous"),
+                                world_size=world, rank=rank)
+        try:
+            mesh = parallel.make_global_factor_mesh(device=dev)
+            if (mesh.size, mesh.rank, mesh.backend, mesh.host_staged) != (world, rank, "gloo", True):
+                raise AssertionError(f"rank {rank}: mesh {mesh}, want a gloo world of {world}")
+            nccl = dist.new_group(ranks=[0], backend="nccl")
+            with np.load(os.path.join(work, "inputs.npz")) as z:
+                arrays = {k: z[k] for k in z.files}
+            m3500_path = os.path.join(work, "m3500.g2o")
+            out = _flat_results(_sharded_calls(dev, arrays, m3500_path, mesh))
+            if rank == 0:
+                one = parallel.make_factor_mesh(group=nccl, device=dev)
+                if (one.size, one.backend) != (1, "nccl"):
+                    raise AssertionError(f"rank 0: the NCCL mesh {one}")
+                alone = _sharded_calls(dev, arrays, m3500_path, one, only=("maha6",))
+                out.update({f"nccl1/{k}": v for k, v in _flat_results(alone).items()})
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _sharded(dev, name: str, smi: str, fx: dict) -> None:
+    """Two ranks on the one H100, spawned (CUDA does not survive a fork),
+    over gloo with host-staged partials: the maha6 minimizer on the 19,456
+    padded rows (9,728 a rank), the 3-DoF, PnP and p2p minimizers, the
+    NdtRegistrar (maha, planar and p2p) on the full scan, CG on the 80-pose fixture
+    and sparse on M3500, each against the same unsharded call in this
+    process; and a one-rank NCCL group's maha6 solve, bitwise the unsharded
+    one. The kernels were built before the spawn, so the ranks only load
+    them."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    work = os.path.join(REPO, "build", "smoke_sharded")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    # M3500 written as g2o and initialized by chordal averaging, as in
+    # the pose_graph_m3500 phase; every rank starts from this state
+    m3500_path, _, _, initial, _, _ = _manhattan_flow(dev, M3500, "smoke_sharded/m3500.g2o")
+    arrays = _sharded_inputs(dict(fx, m3500_initial=initial), work)
+    want = _sharded_calls(dev, arrays, m3500_path, None)
+
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_sharded_rank, args=(r, SHARDED_WORLD, work))
+             for r in range(SHARDED_WORLD)]
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(timeout=600)
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    world_s = time.perf_counter() - t0
+    errors = [open(os.path.join(work, f)).read() for f in sorted(os.listdir(work))
+              if f.endswith(".err")]
+    if errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"sharded: ranks exited {[p.exitcode for p in procs]}:\n"
+                             + "\n".join(errors))
+    ranks = []
+    for r in range(SHARDED_WORLD):
+        with np.load(os.path.join(work, f"rank{r}.npz")) as z:
+            ranks.append({k: z[k] for k in z.files})
+
+    # every rank holds the same bits: the fixed-order sum
+    for r, got in enumerate(ranks[1:], 1):
+        for k, v in ranks[0].items():
+            if not k.startswith("nccl1/") and not k.endswith("wall_ms") and not np.array_equal(got[k], v):
+                raise AssertionError(f"sharded: rank {r} differs from rank 0 in {k}")
+    report, failures = {}, []
+    for case, ref in want.items():
+        got = {k[len(case) + 1:]: v for k, v in ranks[0].items() if k.startswith(case + "/")}
+        counts = ("iterations",) if "iterations" in ref else ("outer", "inner")
+        counts_equal = all(np.array_equal(got[c], ref[c]) for c in counts)
+        pose_key = "pose" if "pose" in ref else "poses"
+        diff = float(np.abs(got[pose_key] - ref[pose_key]).max())
+        row = {"counts": {c: np.asarray(got[c]).tolist() for c in counts},
+               "counts_equal_unsharded": counts_equal, "pose_diff_vs_unsharded": diff,
+               "launches_per_rank": [int(rk[f"{case}/launches"]) for rk in ranks],
+               "wall_ms_per_rank": [float(rk[f"{case}/wall_ms"]) for rk in ranks],
+               "unsharded_wall_ms": ref["wall_ms"], "unsharded_launches": ref["launches"]}
+        if "evaluations" in ref:
+            row["lm_evaluations"] = int(got["evaluations"])
+        if "steps" in ref:
+            row["steps"] = int(got["steps"])
+        if case in SHARDED_COST_RTOL:
+            rel = abs(float(got["final_cost"]) - ref["final_cost"]) / abs(ref["final_cost"])
+            row["cost_rel_diff"] = rel
+            if rel > SHARDED_COST_RTOL[case]:
+                failures.append(f"{case}: cost {rel}")
+        if not counts_equal or diff > SHARDED_POSE_TOL[case]:
+            failures.append(f"{case}: counts {row['counts']} vs unsharded "
+                            f"{ {c: np.asarray(ref[c]).tolist() for c in counts} }, pose {diff}")
+        report[case] = row
+    nccl = {k[len("nccl1/maha6/"):]: v for k, v in ranks[0].items() if k.startswith("nccl1/maha6/")}
+    nccl_bitwise = all(np.array_equal(nccl[k], want["maha6"][k])
+                       for k in ("pose", "iterations", "final_cost", "evaluations"))
+    if not nccl_bitwise or int(nccl["launches"]) != int(nccl["evaluations"]):
+        failures.append(f"one-rank NCCL maha6: {nccl} vs unsharded {want['maha6']}")
+    if failures:
+        raise AssertionError(f"sharded: {failures}")
+    emit("sharded", world=SHARDED_WORLD, backend="gloo", staging="host (partials copied to host "
+         "memory for the all_gather, the sum in rank order on the host copy, back to the card)",
+         start_method="spawn", ranks_bitwise_equal=True, world_wall_s=world_s,
+         walls="each call after a warm-up; cg and sparse_m3500 their one first solve "
+               "(the sparse plan included)",
+         pose_tol=SHARDED_POSE_TOL, cost_rtol=SHARDED_COST_RTOL, cases=report,
+         nccl_one_rank={"bitwise_equal_unsharded": True, "iterations": int(nccl["iterations"]),
+                        "launches": int(nccl["launches"]), "wall_ms": float(nccl["wall_ms"])},
+         device=name, nvidia_smi=smi)
+
+
+def _time_checker(dev, name: str, smi: str, matched) -> None:
+    """``device_time`` around a maha6 kernel solve (the sample includes the
+    fence on the card), and ``trace`` writing a torch.profiler trace under
+    build/ that exists afterwards and names the span and the kernel."""
+    import shutil
+
+    import torch
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.utils import time_checker as tc
+
+    mini = port.MahalanobisDistanceMinimizer(device=dev).set_loss_function(
+        port.ExponentialLoss(1.0, 1.0))
+    solve = lambda: mini.solve(port.Options(), matched, port.Pose.identity())[1]
+    mgr = tc.TimeCheckerManager.instance()
+    mgr.reset()
+    solve()
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    with tc.device_time("smoke/maha6_solve") as holder:
+        holder["out"] = solve().final_cost
+    launches = ck.LAUNCHES["maha6"]
+    (sample,) = mgr.samples["smoke/maha6_solve"]
+    trace_dir = os.path.join(REPO, "build", "smoke_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with tc.trace("smoke/maha6_solve", log_dir=trace_dir):
+        solve()
+        torch.cuda.synchronize()
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    text = open(os.path.join(trace_dir, files[0])).read() if len(files) == 1 else ""
+    if not (launches > 0 and sample > 0 and "smoke/maha6_solve" in text and "nls::" in text):
+        raise AssertionError(f"time_checker: launches {launches}, sample {sample} ms, "
+                             f"trace files {files}")
+    emit("time_checker", device_time_ms=sample, maha6_launches=launches,
+         report=mgr.report_lines(), trace_file=os.path.relpath(
+             os.path.join(trace_dir, files[0]), REPO), trace_bytes=len(text),
+         device=name, nvidia_smi=smi)
+    mgr.reset()
+
+
 def _evaluations(summaries) -> int:
     """LM evaluations of the inner solves: their recorded costs."""
     import torch
@@ -2548,20 +3013,25 @@ def _wall_ms(fn, runs: int) -> float:
 
 def _profile(fn, warm: bool = True) -> dict:
     """Where the device time of one call of ``fn`` goes, by kernel name
-    (torch.profiler, CUPTI): device busy, idle share, top kernels. A
-    warm-up call comes first unless ``warm`` is False."""
+    (torch.profiler, CUPTI): device busy, idle share, top kernels, and the
+    port's launch counts (``ck.LAUNCHES``) of the profiled call beside the
+    trace's. A warm-up call comes first unless ``warm`` is False."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+
     if warm:
         fn()
     torch.cuda.synchronize()
+    before = dict(ck.LAUNCHES)  # a difference: the caller's counts run on
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000.0
+    launches = {k: v - before[k] for k, v in ck.LAUNCHES.items() if v != before[k]}
     events = prof.key_averages()
     rows = sorted(  # device-side events only: a CPU op's device time repeats its kernels'
         ((ev.self_device_time_total, ev.key, ev.count) for ev in events
@@ -2581,6 +3051,7 @@ def _profile(fn, warm: bool = True) -> dict:
         wall_ms=wall_ms, device_busy_ms=device_ms,
         device_idle_share=(1.0 - device_ms / wall_ms) if device_ms else None,
         device_kernels=sum(r[2] for r in rows), port_kernels=port_kernels,
+        port_launches=launches,
         top_device=[{"name": k[:80], "ms": us / 1000.0, "count": c} for us, k, c in rows[:10]],
         top_host=[{"name": k[:80], "ms": us / 1000.0, "count": c} for us, k, c in host[:10]],
     )

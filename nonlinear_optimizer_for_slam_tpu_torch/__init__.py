@@ -21,10 +21,13 @@ dense, tridiag, banded, sparse multifrontal, CG and ``solver="auto"``), the
 SE(2) ``PoseGraphOptimizer2D`` (dense, banded, sparse, CG, auto), the
 spanning-tree and chordal initializers (``solvers.graph_init``, behind
 ``initialize()``) and g2o file IO for 3-D and 2-D graphs (``io.g2o``) run in
-plain PyTorch ops, as the JAX package's run in XLA.
+plain PyTorch ops, as the JAX package's run in XLA; so do the generic pose
+problem (``solvers.problem``) and the small utilities (``utils``).
+``parallel`` shards the minimizers, the registrar and the CG and sparse
+pose-graph paths over a ``torch.distributed`` group (``mesh=``).
 """
 
-from . import core, interop, io, ops, pipelines, solvers, utils
+from . import core, interop, io, ops, parallel, pipelines, solvers, utils
 from .core import (
     CauchyLoss,
     DCSLoss,

@@ -1,7 +1,7 @@
 """Quaternion math for SE(3) pose manipulation, and the SE(2) rotation of
-the planar solvers (PyTorch port of the part of the JAX package's
-``core/lie.py`` that registration and the pose graph use), and numpy
-twins of the quaternion product for host-side algebra.
+the planar solvers (PyTorch port of the JAX package's ``core/lie.py`` but
+for the two IMU Jacobians), and numpy twins of the quaternion product for
+host-side algebra.
 
 All functions are dtype-polymorphic, batched over leading dims and
 branch-free (small-angle branches become ``torch.where`` masks).
@@ -23,6 +23,22 @@ import torch
 Tensor = torch.Tensor
 
 _SMALL_ANGLE = 1e-6
+
+
+def skew(v: Tensor) -> Tensor:
+    """Skew-symmetric (hat) matrix of a 3-vector; batched over leading dims
+    (reference: the inline ``skew`` lambda in
+    mahalanobis_distance_minimizer_analytic.cc:170-176)."""
+    x, y, z = v.unbind(-1)
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([zero, -z, y], dim=-1),
+            torch.stack([z, zero, -x], dim=-1),
+            torch.stack([-y, x, zero], dim=-1),
+        ],
+        dim=-2,
+    )
 
 
 def so3_exp_quaternion(w: Tensor) -> Tensor:
@@ -98,9 +114,50 @@ def quat_to_rotmat(q: Tensor) -> Tensor:
     )
 
 
+def rotmat_to_quat(R: Tensor) -> Tensor:
+    """3x3 rotation matrix -> unit quaternion (w, x, y, z); batched.
+
+    Branch-free Shepperd-style selection of the numerically best of the four
+    candidate extractions (the trace formula alone loses precision near
+    180-degree rotations); the first of equal scores wins, as ``argmax``
+    picks it in both packages."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+
+    tr = m00 + m11 + m22
+    # four candidates, each scaled by 4 q_k^2 (kept non-negative)
+    qw_sq = torch.clamp(1.0 + tr, min=0.0)
+    qx_sq = torch.clamp(1.0 + m00 - m11 - m22, min=0.0)
+    qy_sq = torch.clamp(1.0 - m00 + m11 - m22, min=0.0)
+    qz_sq = torch.clamp(1.0 - m00 - m11 + m22, min=0.0)
+    sw = 2.0 * torch.sqrt(qw_sq + 1e-30)
+    sx = 2.0 * torch.sqrt(qx_sq + 1e-30)
+    sy = 2.0 * torch.sqrt(qy_sq + 1e-30)
+    sz = 2.0 * torch.sqrt(qz_sq + 1e-30)
+
+    cand = torch.stack(
+        [
+            torch.stack([0.25 * sw, (m21 - m12) / sw, (m02 - m20) / sw, (m10 - m01) / sw], -1),
+            torch.stack([(m21 - m12) / sx, 0.25 * sx, (m01 + m10) / sx, (m02 + m20) / sx], -1),
+            torch.stack([(m02 - m20) / sy, (m01 + m10) / sy, 0.25 * sy, (m12 + m21) / sy], -1),
+            torch.stack([(m10 - m01) / sz, (m02 + m20) / sz, (m12 + m21) / sz, 0.25 * sz], -1),
+        ],
+        dim=-2,
+    )  # (..., 4 candidates, 4)
+    best = torch.argmax(torch.stack([qw_sq, qx_sq, qy_sq, qz_sq], dim=-1), dim=-1)
+    index = best[..., None, None].expand(best.shape + (1, 4))
+    return quat_normalize(torch.gather(cand, -2, index)[..., 0, :])
+
+
 def quat_rotate(q: Tensor, v: Tensor) -> Tensor:
     """Rotate vector(s) v (..., 3) by unit quaternion(s) q (..., 4)."""
     return (quat_to_rotmat(q) @ v[..., None])[..., 0]
+
+
+def se3_apply(R: Tensor, t: Tensor, points: Tensor) -> Tensor:
+    """Apply (R, t) to points (..., 3): R p + t."""
+    return points @ R.mT + t
 
 
 # Numpy twins for host-side quaternion algebra (wxyz), as in the JAX

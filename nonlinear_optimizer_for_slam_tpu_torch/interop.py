@@ -39,10 +39,19 @@ a given device:
   matrices), to ``device``: the indices as int64, the rest in ``dtype``;
 - ``pose_graph_2d_state``: an SE(2) solve's state, ``xyt`` (P, 3) and
   ``switches`` (L,), to ``device`` in ``dtype`` as a
-  :class:`PoseGraph2DState`.
+  :class:`PoseGraph2DState`;
+- ``problem``: the residual blocks of a ``solvers.problem.Problem``, a list
+  of ``(functor class name, {constructor argument: array or None}, loss)``
+  with the loss as above or None; the functors are the four built-in ones
+  (``MahalanobisDistanceCostFunctor``: ``points``, ``means``,
+  ``sqrt_infos``, ``mask``; ``PointToPlaneCostFunctor``: ``points``,
+  ``means``, ``normals``, ``mask``; ``TranslationDeltaCostFunctor``:
+  ``target_translation``, ``sqrt_info``; ``RotationDeltaCostFunctor``:
+  ``target_rotation``, ``sqrt_info``), built on ``device`` with each array
+  in its own dtype.
 
-:func:`to_reference` is the inverse: the same dicts back, as numpy (the
-intrinsics as floats and ints).
+:func:`to_reference` is the inverse but for ``problem``: the same dicts
+back, as numpy (the intrinsics as floats and ints).
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ from .core.options import (
 from .core.pose import Pose
 from .ops.mahalanobis import MahalanobisData
 from .ops.relative_pose import PoseGraphEdges
+from .solvers import problem as problem_mod
 from .solvers.pose_graph import PoseGraph2DEdges
 from .ops.reprojection import CameraIntrinsics, ReprojectionData
 from .pipelines.fused_registration import RegistrarMap
@@ -80,6 +90,16 @@ LOSSES = {
         losses_mod.TukeyLoss,
         losses_mod.GemanMcClureLoss,
         losses_mod.DCSLoss,
+    )
+}
+
+FUNCTORS = {
+    cls.__name__: cls
+    for cls in (
+        problem_mod.MahalanobisDistanceCostFunctor,
+        problem_mod.PointToPlaneCostFunctor,
+        problem_mod.TranslationDeltaCostFunctor,
+        problem_mod.RotationDeltaCostFunctor,
     )
 }
 
@@ -117,6 +137,7 @@ class PortState(NamedTuple):
     pose_graph_state: Optional[PoseGraphState] = None
     pose_graph_2d_edges: Optional[PoseGraph2DEdges] = None
     pose_graph_2d_state: Optional[PoseGraph2DState] = None
+    problem: Optional[problem_mod.Problem] = None
 
 
 def _enum(cls, value):
@@ -146,6 +167,15 @@ def _options(fields: Mapping[str, Any]) -> Options:
     return Options(**fields)
 
 
+def _loss(spec) -> Optional[losses_mod.LossFunction]:
+    if spec is None:
+        return None
+    name, params = spec
+    if name not in LOSSES:
+        raise ValueError(f"unknown loss {name!r}; one of {sorted(LOSSES)}")
+    return LOSSES[name](**{k: float(v) for k, v in params.items()})
+
+
 def from_reference(
     *,
     ndt_map: Optional[Mapping[str, np.ndarray]] = None,
@@ -160,6 +190,7 @@ def from_reference(
     pose_graph_state: Optional[Mapping[str, np.ndarray]] = None,
     pose_graph_2d_edges: Optional[Mapping[str, Optional[np.ndarray]]] = None,
     pose_graph_2d_state: Optional[Mapping[str, np.ndarray]] = None,
+    problem: Optional[list] = None,
     device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> PortState:
@@ -188,12 +219,7 @@ def from_reference(
             np.asarray(pose["rotation"], np.float64),
             np.asarray(pose["translation"], np.float64),
         )
-    port_loss = None
-    if loss is not None:
-        name, params = loss
-        if name not in LOSSES:
-            raise ValueError(f"unknown loss {name!r}; one of {sorted(LOSSES)}")
-        port_loss = LOSSES[name](**{k: float(v) for k, v in params.items()})
+    port_loss = _loss(loss)
     port_options = None if options is None else _options(options)
     port_registrar_map = None
     if registrar_map is not None:
@@ -243,10 +269,21 @@ def from_reference(
         port_state_2d = PoseGraph2DState(
             *(to_device(pose_graph_2d_state[f]) for f in PoseGraph2DState._fields)
         )
+    port_problem = None
+    if problem is not None:
+        port_problem = problem_mod.Problem()
+        for name, arrays, block_loss in problem:
+            if name not in FUNCTORS:
+                raise ValueError(f"unknown cost functor {name!r}; one of {sorted(FUNCTORS)}")
+            functor = FUNCTORS[name](
+                **{k: None if a is None else np.asarray(a) for k, a in arrays.items()},
+                device=device,
+            )
+            port_problem.add_residual_block(functor, _loss(block_loss))
     return PortState(
         port_map, port_data, port_pose, port_loss, port_options, port_registrar_map,
         port_reprojection, port_intrinsics, port_edges, port_graph_state,
-        port_edges_2d, port_state_2d,
+        port_edges_2d, port_state_2d, port_problem,
     )
 
 

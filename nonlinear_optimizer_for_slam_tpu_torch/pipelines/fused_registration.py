@@ -55,6 +55,18 @@ in ``ops/cuda_kernels``), one launch per step for all B lanes, finished or
 not; ``"torch"`` unpacks it once per match and evaluates with the plain
 PyTorch factor code (the JAX ``"jnp"`` backend). On a CUDA device the
 default is ``"cuda"``; on the CPU ``"torch"`` is the only path.
+
+Sharding
+--------
+``NdtRegistrar(mesh=)`` (a ``parallel.FactorMesh``) runs one registration
+over the ranks of a ``torch.distributed`` group, as the JAX package's
+``_fused_register_sharded`` runs it over a device mesh: every rank calls
+``register`` with the full scan, the scan points are padded with masked
+zeros to a multiple of the world size, each rank matches its own block
+against the whole map and evaluates it, and each step's (H, g, cost)
+partials are summed across ranks (``parallel.all_sum``, the same bits on
+every rank). The machine, its blocks and its one host read per block are
+then the same on every rank.
 """
 
 from __future__ import annotations
@@ -74,6 +86,7 @@ from ..ops import cuda_kernels as ck
 from ..ops import mahalanobis as maha_ops
 from ..ops import point_to_plane as p2p_ops
 from ..ops.quadratic import _symmetric_gather
+from ..parallel import FactorMesh, factor_sharding, reducer
 from ..solvers import minimizers as mins
 from ..solvers.linear import damp_hessian, solve_normal_equations
 from ..solvers.manifolds import SE2Params, SE3Params, se2_retract, se3_retract
@@ -210,6 +223,7 @@ class _Machine:
         self.loss = loss
         self.max_outer_iterations = max_outer_iterations
         self._last_run: Optional[dict] = None
+        self._reduce = lambda hgc: hgc  # the sum over a mesh's ranks
 
         # everything the blocks read, on the device before the first block
         scalar = lambda v: torch.full((), v, dtype=dtype, device=self.device)
@@ -401,13 +415,16 @@ class _Machine:
         return torch.where(finite, delta, torch.zeros_like(delta))
 
     def _eval(self, R: Tensor, t: Tensor, data):
-        """(H, g, cost) of every lane, in the registrar's dtype."""
+        """(H, g, cost) of every lane, in the registrar's dtype, summed over
+        the ranks of a mesh."""
         if self.eval_backend == "torch":
             if self.objective == "p2p":
-                return p2p_ops.eval_quadratic(R, t, data, self.loss)
-            if self.planar:
-                return maha_ops.eval_quadratic_3dof(R, t, data, self.loss)
-            return maha_ops.eval_quadratic(R, t, data, self.loss)
+                hgc = p2p_ops.eval_quadratic(R, t, data, self.loss)
+            elif self.planar:
+                hgc = maha_ops.eval_quadratic_3dof(R, t, data, self.loss)
+            else:
+                hgc = maha_ops.eval_quadratic(R, t, data, self.loss)
+            return self._reduce(hgc)
         if self.planar:
             params = ck.maha3_params(R, t, self._loss_ab)
             out, dim = ck.maha3_partials(params, data, self._loss_code), 3
@@ -415,7 +432,7 @@ class _Machine:
             params = ck.maha6_params(R, t, self._loss_ab)
             partials = ck.p2p_partials if self.objective == "p2p" else ck.maha6_partials
             out, dim = partials(params, data, self._loss_code), 6
-        return ck.unpack_out(out.to(self.dtype), dim)
+        return ck.unpack_out(self._reduce(out.to(self.dtype)), dim)
 
 
 class NdtRegistrar(_Machine):
@@ -436,6 +453,9 @@ class NdtRegistrar(_Machine):
     ``map_pad_multiple`` pads the voxel count to a bucket with masked
     voxels. ``device`` defaults to "cuda"; ``eval_backend`` to "cuda" (the
     kernels) on a CUDA device and "torch" (the plain versions) otherwise.
+    ``mesh`` shards each registration's scan points over a process group
+    (see the module docstring); it takes neither ``register_batch`` nor
+    ``map_pad_multiple``, as in the JAX package.
     """
 
     def __init__(
@@ -456,15 +476,21 @@ class NdtRegistrar(_Machine):
         trim_distance: float = 0.3,
         device="cuda",
         eval_backend: Optional[str] = None,
+        mesh: Optional[FactorMesh] = None,
     ):
         if objective not in ("maha", "p2p"):
             raise ValueError(f"unknown objective {objective!r} (maha | p2p)")
         if objective == "p2p" and planar:
             raise NotImplementedError("planar mode is mahalanobis-only")
+        if map_pad_multiple is not None and mesh is not None:
+            raise NotImplementedError("map_pad_multiple with mesh sharding is not supported")
         self._init_machine(
             options, loss, max_outer_iterations, outer_tolerance, dtype, device,
             eval_backend, planar, objective,
         )
+        self.mesh = mesh
+        if mesh is not None:
+            self._reduce = reducer(mesh)
         if isinstance(ndt_map, RegistrarMap):
             self.map = RegistrarMap(
                 *(None if a is None else a.to(dtype=dtype, device=self.device) for a in ndt_map)
@@ -530,6 +556,11 @@ class NdtRegistrar(_Machine):
         :meth:`finalize_batch`."""
         if mode not in ("lockstep", "vmap"):
             raise ValueError(f"unknown mode {mode!r} (lockstep | vmap)")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "register_batch shards over the batch axis implicitly; "
+                "use one NdtRegistrar per replica instead of mesh="
+            )
         if self.map.map_mask is not None:
             raise NotImplementedError(
                 "register_batch with map_pad_multiple is not wired; "
@@ -571,14 +602,20 @@ class NdtRegistrar(_Machine):
     def _launch(self, scans, initial_poses, vmap: bool = False):
         """Pad the scans to one N with masked rows and run the machine:
         returns (t, q, outer_it, inner_its, costs, final_cost), (B, ...)
-        device tensors."""
+        device tensors. Under a mesh N is a multiple of the world size and
+        the machine runs on this rank's block of the points."""
         scans = [np.asarray(s) for s in scans]
         B, n_max = len(scans), max(s.shape[0] for s in scans)
+        if self.mesh is not None:
+            n_max = _round_up(n_max, self.mesh.size)
         pts = np.zeros((B, n_max, 3))
         mask = np.zeros((B, n_max))
         for b, s in enumerate(scans):
             pts[b, : s.shape[0]] = s
             mask[b, : s.shape[0]] = 1.0
+        if self.mesh is not None:
+            rows = factor_sharding(self.mesh, n_max)
+            pts, mask = pts[:, rows], mask[:, rows]
         as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=self.device)
         points = as_t(pts)
         pmask = as_t(mask)

@@ -17,11 +17,19 @@ the point-to-plane objective. Each class takes ``backend=``:
 On a CUDA device the default backend is ``"cuda"``, on the CPU ``"torch"``.
 Correspondence counts are padded to ``pad_multiple`` with masked rows, as in
 the JAX package, so every backend sees the same factor set.
+
+``mesh=`` (a ``parallel.FactorMesh``) shards a solve over the ranks of a
+``torch.distributed`` group: every rank calls ``solve`` with the full data,
+the rows are padded to ``pad_multiple`` times the world size, each rank
+evaluates its own block of rows (through its objective's kernel on the
+card) and the (H, g, cost) partials are summed across ranks before the
+priors are added, so the priors count once and the LM loop is the same on
+every rank.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +41,8 @@ from ..core.options import Options
 from ..core.pose import Pose, np_quat_to_rotmat, np_rotmat_to_quat
 from ..ops import cuda_kernels, mahalanobis, point_to_plane, reprojection
 from ..ops.reprojection import CameraIntrinsics
+from ..parallel import FactorMesh, reducer
+from ..parallel.sharded import shard_rows
 from . import lm
 from .manifolds import SE2Params, SE3Params, se2_retract, se3_retract
 
@@ -102,11 +112,13 @@ class _MinimizerBase:
         dtype: torch.dtype = torch.float32,
         pad_multiple: int = 1024,
         device="cuda",
+        mesh: Optional[FactorMesh] = None,
     ):
         self.device = resolve_device(device)
         self.backend = resolve_backend(backend, self.device)
         self.dtype = dtype
         self.pad_multiple = pad_multiple
+        self.mesh = mesh
         self.loss_function: Optional[LossFunction] = None
         self.priors: Optional[SE3Priors] = None
 
@@ -149,7 +161,19 @@ class _MinimizerBase:
         return self
 
     def _pad(self, n: int) -> int:
-        return _round_up(max(n, 1), self.pad_multiple)
+        m = self.pad_multiple
+        if self.mesh is not None:
+            m *= self.mesh.devices.size
+        return _round_up(max(n, 1), m)
+
+    def _prepared(self, data):
+        """``data`` cast and padded as every solve sees it, then this rank's
+        block of rows under a mesh; and the reducer of the partials (None
+        without a mesh)."""
+        data = data.astype(self.dtype).pad_to(self._pad(data.num_factors))
+        if self.mesh is None:
+            return data, None
+        return shard_rows(self.mesh, data), reducer(self.mesh)
 
     def _as_tensor(self, value) -> Tensor:
         return torch.as_tensor(value, dtype=self.dtype, device=self.device)
@@ -168,9 +192,10 @@ class MahalanobisDistanceMinimizer(_MinimizerBase):
         as_t = self._as_tensor
         t0 = as_t(pose.translation)
         q0 = as_t(pose.quaternion())
-        data = data.astype(self.dtype).pad_to(self._pad(data.num_factors))
+        data, reduce = self._prepared(data)
         params, summary = _se3_solve(
-            "maha", t0, q0, data, self.loss_function, self.priors, options, self.backend
+            "maha", t0, q0, data, self.loss_function, self.priors, options, self.backend,
+            reduce=reduce,
         )
         return _pose_from_params(params), summary
 
@@ -210,9 +235,9 @@ class MahalanobisDistanceMinimizer3DOF(_MinimizerBase):
                 self.priors.translation_weight,
                 self.priors.rotation_weight,
             )
-        data = data.astype(self.dtype).pad_to(self._pad(data.num_factors))
+        data, reduce = self._prepared(data)
         params, summary = _maha3_solve(
-            t0, theta0, data, self.loss_function, planar_priors, options, self.backend
+            t0, theta0, data, self.loss_function, planar_priors, options, self.backend, reduce
         )
         t2_theta = torch.cat([params.translation, params.theta[None]]).cpu().numpy()
         out = pose.copy()
@@ -238,11 +263,11 @@ class ReprojectionErrorMinimizer(_MinimizerBase):
         intrinsics: CameraIntrinsics,
         pose: Pose,
     ) -> Tuple[Pose, lm.Summary]:
-        data = data.astype(self.dtype).pad_to(self._pad(data.num_factors))
+        data, reduce = self._prepared(data)
         params, summary = _se3_solve(
             "reproj", self._as_tensor(pose.translation), self._as_tensor(pose.quaternion()),
             data, self.loss_function, self.priors, options, self.backend,
-            self._intrinsics(intrinsics),
+            self._intrinsics(intrinsics), reduce,
         )
         return _pose_from_params(params), summary
 
@@ -271,10 +296,10 @@ class PointToPlaneMinimizer(_MinimizerBase):
         pose: Pose,
     ) -> Tuple[Pose, lm.Summary]:
         as_t = self._as_tensor
-        data = data.astype(self.dtype).pad_to(self._pad(data.num_factors))
+        data, reduce = self._prepared(data)
         params, summary = _se3_solve(
             "p2p", as_t(pose.translation), as_t(pose.quaternion()), data,
-            self.loss_function, self.priors, options, self.backend,
+            self.loss_function, self.priors, options, self.backend, reduce=reduce,
         )
         return _pose_from_params(params), summary
 
@@ -341,6 +366,7 @@ def se3_quadratic(
     loss: Optional[LossFunction],
     backend: str,
     intrinsics: Optional[CameraIntrinsics] = None,
+    reduce: Optional[Callable] = None,
 ):
     """``quad(params) -> (H (B, 6, 6), g (B, 6), cost (B,))`` of B SE(3)
     problems of ``objective`` ("maha", "reproj" or "p2p") at (B, ...)
@@ -351,7 +377,10 @@ def se3_quadratic(
     rows, and each call evaluates the whole batch with ONE launch of the
     objective's kernel; ``"torch"`` runs the plain factor code. A lone
     problem is a batch of one: the serial minimizers and
-    ``solvers/batched`` share this evaluation."""
+    ``solvers/batched`` share this evaluation. ``reduce`` (a
+    ``parallel.reducer``) sums each evaluation over the ranks of a mesh:
+    the kernel's outputs, or the plain path's (H, g, cost)."""
+    reduce = reduce or (lambda x: x)
     plain, pack, kernel_params, loss_ab_fn, partials = _SE3_OBJECTIVES[objective]
     camera = () if intrinsics is None else (intrinsics,)
     if backend == "cuda":
@@ -361,10 +390,10 @@ def se3_quadratic(
         def eval_fn(R, t):
             kparams = kernel_params(R, t, *camera, loss_ab).contiguous()
             out = partials(kparams, packed, code)
-            return cuda_kernels.unpack_out(out.to(t.dtype), 6)
+            return cuda_kernels.unpack_out(reduce(out.to(t.dtype)), 6)
 
     else:
-        eval_fn = lambda R, t: plain(R, t, data, *camera, loss)
+        eval_fn = lambda R, t: reduce(plain(R, t, data, *camera, loss))
 
     def quad(params: SE3Params):
         return eval_fn(lie.quat_to_rotmat(params.quaternion), params.translation)
@@ -382,13 +411,16 @@ def _se3_solve(
     options: Options,
     backend: str,
     intrinsics: Optional[CameraIntrinsics] = None,
+    reduce: Optional[Callable] = None,
 ) -> Tuple[SE3Params, lm.Summary]:
     """One SE(3) LM solve of ``objective`` on data already cast and padded
     (the reprojection objective with the intrinsics as scalar tensors of
     the solve): the problem as a batch of one through
-    :func:`se3_quadratic` and ``lm.solve_batch``."""
+    :func:`se3_quadratic` and ``lm.solve_batch``. Under a mesh ``data`` is
+    this rank's block and ``reduce`` sums the evaluations; the priors are
+    added after the sum, so they count once."""
     batch = type(data)(*(a[None] for a in data))
-    quad_b = se3_quadratic(objective, batch, loss, backend, intrinsics)
+    quad_b = se3_quadratic(objective, batch, loss, backend, intrinsics, reduce)
 
     def quad(params: SE3Params):
         return _add_se3_priors(*quad_b(params), params, priors)
@@ -407,9 +439,12 @@ def _maha3_solve(
     priors: Optional[Tuple[Tensor, Tensor, Tensor, Tensor]],
     options: Options,
     backend: str,
+    reduce: Optional[Callable] = None,
 ) -> Tuple[SE2Params, lm.Summary]:
     """One planar LM solve on data already cast and padded. ``priors`` is
-    (t2 prior, yaw prior, translation weight, yaw weight) or None."""
+    (t2 prior, yaw prior, translation weight, yaw weight) or None; under a
+    mesh ``reduce`` sums each evaluation before they are added."""
+    reduce = reduce or (lambda x: x)
     if backend == "cuda":
         # the compact 10-row Gram packing, built once per solve: 40 bytes a
         # factor against the 16-row layout's 64
@@ -419,10 +454,10 @@ def _maha3_solve(
         def eval_fn(R2, t2):
             params = cuda_kernels.maha3_params(R2, t2, loss_ab)[None]
             out = cuda_kernels.maha3c_partials(params, packed, code)[0]
-            return cuda_kernels.unpack_out(out.to(t0.dtype), 3)
+            return cuda_kernels.unpack_out(reduce(out.to(t0.dtype)), 3)
 
     else:
-        eval_fn = lambda R2, t2: mahalanobis.eval_quadratic_3dof(R2, t2, data, loss)
+        eval_fn = lambda R2, t2: reduce(mahalanobis.eval_quadratic_3dof(R2, t2, data, loss))
 
     def quad(params: SE2Params):
         H, g, c = eval_fn(lie.rot2(params.theta), params.translation)

@@ -59,6 +59,8 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..parallel import all_gather_rows, row_block
+
 Tensor = torch.Tensor
 
 
@@ -543,13 +545,13 @@ def factor(plan: Plan, B_aa: Tensor, B_bb: Tensor, B_ab: Tensor, diag: Tensor,
     rejects the step, as a NaN ``jnp.linalg.cholesky`` does in the JAX
     package.
 
-    ``mesh`` (fronts partitioned across devices) is not ported yet
-    (ROADMAP A.8)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multifrontal factor(mesh=) is not ported to the PyTorch package "
-            "yet (ROADMAP A.8)"
-        )
+    ``mesh``: a ``parallel.FactorMesh``. Every rank assembles each level's
+    fronts, factors its own block of them (``parallel.row_block``), and
+    one ``all_gather`` per level hands every rank the whole level's
+    factor and Schur complements: every rank holds the whole factor, the
+    factors of the unsharded call front by front. (The JAX package's
+    ``_front_sharding`` is a layout hint to XLA with no numerical
+    effect.)"""
     d = plan.d
     dtype, device = B_aa.dtype, B_aa.device
     swap, _, maps = _device_maps(plan, device)
@@ -578,15 +580,26 @@ def factor(plan: Plan, B_aa: Tensor, B_bb: Tensor, B_ab: Tensor, diag: Tensor,
         if S_prev is not None:
             F += _extend(S_prev, dm, m, d)
         F.diagonal(dim1=-2, dim2=-1).add_(dm.pad_diag.to(dtype))
-        A11 = F[:, :mi, :mi]
+        Fr = F if mesh is None else F[row_block(mesh, dp.num_fronts)]  # this rank's fronts
+        A11 = Fr[:, :mi, :mi]
         L11, info = torch.linalg.cholesky_ex(A11)
         L11 = L11.masked_fill((info != 0)[:, None, None], float("nan"))
         if dp.nb:
-            W = torch.linalg.solve_triangular(L11, F[:, :mi, mi:], upper=False)
-            S_prev = F[:, mi:, mi:] - W.mT @ W
+            W = torch.linalg.solve_triangular(L11, Fr[:, :mi, mi:], upper=False)
+            S_prev = Fr[:, mi:, mi:] - W.mT @ W
         else:
-            W = F.new_zeros((dp.num_fronts, mi, 0))
+            W = Fr.new_zeros((Fr.shape[0], mi, 0))
             S_prev = None
+        if mesh is not None:
+            mine = (L11, W, S_prev)
+            whole = all_gather_rows(mesh, mine, dp.num_fronts)
+            # the gathered fronts arrive row-major; each takes the layout
+            # of this rank's own (the unsharded factor's), since the later
+            # triangular solves round by the layout of their operands
+            L11, W, S_prev = (
+                x if own is None or own.stride(-1) == 1 else x.mT.contiguous().mT
+                for x, own in zip(whole, mine)
+            )
         levels.append((L11, W))
     levels.reverse()  # levels[dep] aligns with plan.depths[dep]
     return tuple(levels)
@@ -695,8 +708,8 @@ def solve(
     iterative refinement through :func:`edge_matvec`, a TPU measure
     (float64 panel products are emulated there); the H100 computes float64
     natively, so the port factors in float64 and solves once. ``e_a`` and
-    ``e_b`` are taken for the JAX package's signature. ``mesh`` is not
-    ported yet (ROADMAP A.8)."""
+    ``e_b`` are taken for the JAX package's signature; ``mesh`` goes to
+    :func:`factor`."""
     fact = factor(plan, B_aa, B_bb, B_ab, diag, mesh=mesh)
     return solve_factored(plan, fact, b)
 

@@ -24,6 +24,10 @@ cyclic reduction after a reverse Cuthill-McKee ordering, "sparse" by the
 nested-dissection multifrontal Cholesky (``solvers/multifrontal.py``) for
 loop-rich graphs whose band is fat, and "cg" is the matrix-free
 preconditioned CG path. "auto" picks among them (:func:`select_solver`).
+With ``mesh=`` (a ``parallel.FactorMesh``) the CG path shards the edges
+over the ranks of a ``torch.distributed`` group and sums every edge
+reduction across them, and the sparse path partitions each tree level's
+fronts over the ranks (``multifrontal.factor(mesh=)``).
 
 ``PoseGraphOptimizer2D`` is the SE(2) counterpart (x, y, theta poses, the
 g2o EDGE_SE2 factor with the same switchable loops) with the dense,
@@ -64,6 +68,7 @@ from ..ops.relative_pose import (
     edge_residuals_and_jacobians,
     stack_sqrt_info,
 )
+from ..parallel import FactorMesh, all_sum, factor_sharding
 from . import block_tridiag, lm, multifrontal
 
 Tensor = torch.Tensor
@@ -202,10 +207,15 @@ class _Graph:
     edges, the gauge masks) and the edge linearization. ``edges`` is a
     :class:`PoseGraphEdges` (SE(3): pose parameters (P, 7) = position and
     quaternion) or a :class:`PoseGraph2DEdges` (SE(2): (P, 3) = x, y,
-    theta)."""
+    theta).
+
+    ``loop_slot`` (E,) is given when ``edges`` is one rank's block of a
+    sharded graph: the slots are numbered over the whole graph, on the
+    host, and :meth:`per_switch` places this block's loop edges at their
+    global slots (zeros elsewhere) for the sum across ranks."""
 
     def __init__(self, edges, free_mask: Tensor, P: int, L: int,
-                 switch_penalty: float, edge_loss):
+                 switch_penalty: float, edge_loss, loop_slot: Optional[Tensor] = None):
         self.edges, self.P, self.L = edges, P, L
         self.switch_penalty, self.edge_loss = switch_penalty, edge_loss
         self.E = edges.num_edges
@@ -213,7 +223,8 @@ class _Graph:
         self.ref_i = edges.reference_indices
         self.qry_i = edges.query_indices
         self.is_loop = edges.is_loop > 0
-        self.loop_slot = _loop_slot(edges.is_loop, L)
+        self.sharded = loop_slot is not None
+        self.loop_slot = loop_slot if self.sharded else _loop_slot(edges.is_loop, L)
         # each loop edge owns one slot (slots follow edge order), so the
         # per-switch sums are gathers of the loop edges' values
         self.loop_ids = torch.nonzero(self.is_loop)[:, 0]
@@ -224,6 +235,9 @@ class _Graph:
 
     def per_switch(self, per_edge: Tensor) -> Tensor:
         """(E,) values of the loop edges, in slot order (L,)."""
+        if self.sharded:
+            out = per_edge.new_zeros(self.L)
+            return out.index_put_((self.loop_slot[self.loop_ids],), per_edge[self.loop_ids])
         return per_edge[self.loop_ids]
 
     def accumulate_pose(self, contrib_ref: Tensor, contrib_qry: Tensor) -> Tensor:
@@ -534,10 +548,42 @@ def _pcg(matvec, b, precond, maxiter: int, tol: float = 1e-5):
     return x
 
 
+def _shard_edges(edges, mesh: FactorMesh, P: int, L: int):
+    """This rank's block of ``edges`` (SE(3) or SE(2)) padded to a multiple
+    of the world size, and its slice of the GLOBAL loop slots, numbered on
+    the host (a per-block cumsum would misnumber them). Padding edges are
+    masked, join poses 0 and min(1, P - 1) by the identity and are no
+    loop, as in the JAX package's ``_pose_graph_solve_cg_sharded``."""
+    is_loop = edges.is_loop.cpu().numpy() > 0
+    E = len(is_loop)
+    pad = (-E) % mesh.size
+    loop_slot = np.clip(np.cumsum(is_loop) - 1, 0, max(L - 1, 0))
+    loop_slot = np.concatenate([loop_slot, np.zeros(pad, np.int64)])
+    if pad:
+        def padded(field, x):
+            if x is None:
+                return None
+            if field == "sqrt_info":  # unit information
+                eye = torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
+                filler = x.new_ones((pad, x.shape[1])) if x.dim() == 2 else eye.expand(pad, -1, -1)
+            elif field == "relative_quaternions":  # the identity rotation
+                filler = x.new_zeros((pad, 4))
+                filler[:, 0] = 1.0
+            else:  # masked, no loop, between poses 0 and min(1, P - 1)
+                fill = min(1, P - 1) if field == "query_indices" else 0
+                filler = x.new_full((pad,) + tuple(x.shape[1:]), fill)
+            return torch.cat([x, filler])
+
+        edges = type(edges)(*(padded(f, x) for f, x in edges._asdict().items()))
+    rows = factor_sharding(mesh, E + pad)
+    local = type(edges)(*(None if x is None else x[rows] for x in edges))
+    return local, torch.as_tensor(loop_slot[rows], device=edges.mask.device)
+
+
 def _pose_graph_solve_cg(
     pose0, switches0, edges, free_mask, switch_penalty: float, edge_loss,
     num_poses: int, num_loops: int, options: Options, cg_iterations: int,
-    cg_precond: str = "chain",
+    cg_precond: str = "chain", mesh: Optional[FactorMesh] = None,
 ):
     """Matrix-free LM: the ``lm.solve`` policy loop with a preconditioned-CG
     linear step. ``eval_quadratic`` returns the per-edge Jacobian blocks as
@@ -548,10 +594,20 @@ def _pose_graph_solve_cg(
     of H (per-pose k x k blocks plus the coupling blocks of
     consecutive-pose edges), factored by cyclic reduction once per LM step
     and applied per CG iteration; exact up to the loop off-diagonals.
-    "jacobi" is the per-pose damped k x k diagonal blocks only."""
+    "jacobi" is the per-pose damped k x k diagonal blocks only.
+
+    ``mesh``: each rank keeps its block of the edges (:func:`_shard_edges`)
+    and every edge reduction (cost, gradient, diag(J^T J), the
+    preconditioner's blocks, each CG matvec) is summed across ranks, so the
+    pose-dimension state, the LM loop and the CG iterations stay the same
+    on every rank."""
     P, L = num_poses, num_loops
     k = pose0.shape[1]
-    graph = _Graph(edges, free_mask, P, L, switch_penalty, edge_loss)
+    loop_slot, reduce = None, lambda x: x
+    if mesh is not None:
+        edges, loop_slot = _shard_edges(edges, mesh, P, L)
+        reduce = lambda x: all_sum(mesh, x)
+    graph = _Graph(edges, free_mask, P, L, switch_penalty, edge_loss, loop_slot)
     dtype, device = graph.dtype, graph.device
     ref_i, qry_i = graph.ref_i, graph.qry_i
     accumulate_pose = graph.accumulate_pose
@@ -562,9 +618,9 @@ def _pose_graph_solve_cg(
         chain_fwd = (ref_i < qry_i)[chain][:, None, None]
 
     def scatter_jt(J_ref, J_query, J_s, y):
-        """J^T y as ((P, k), (L,))."""
+        """J^T y as ((P, k), (L,)), summed over a mesh's ranks."""
         gp = accumulate_pose(_btv(J_ref, y), _btv(J_query, y))
-        return gp, graph.per_switch(torch.sum(J_s * y, dim=1))
+        return reduce((gp, graph.per_switch(torch.sum(J_s * y, dim=1))))
 
     split_quadratic = graph.split_quadratic()
 
@@ -581,6 +637,7 @@ def _pose_graph_solve_cg(
             O_chain = _scatter_add(
                 torch.zeros((P, k, k), dtype=dtype, device=device), chain_lo, cross
             )
+        g, cost, d_p, d_s, B_p, O_chain = reduce((g, cost, d_p, d_s, B_p, O_chain))
         return (J_ref, J_query, J_s, d_p, d_s, B_p, O_chain), g, cost
 
     def solve_linear(H_rep, g, lam):
@@ -985,6 +1042,7 @@ def _pose_graph_solve_sparse(
     switch_penalty: float, edge_loss, num_poses: int, num_loops: int,
     plan: multifrontal.Plan,  # from PoseGraphOptimizer._flatten_sparse
     options: Options,
+    mesh: Optional[FactorMesh] = None,
 ):
     """Direct LM by nested-dissection multifrontal block-sparse Cholesky
     (``solvers/multifrontal.py``): the solver class for loop-rich
@@ -997,7 +1055,8 @@ def _pose_graph_solve_sparse(
     elimination are the banded path's (the damped Schur complement of a
     loop switch is a rank-1 update of its edge's blocks, which stay inside
     the sparsity pattern); only the linear solver differs. The fronts
-    factor in the solve's own dtype (see ``multifrontal.solve``)."""
+    factor in the solve's own dtype (see ``multifrontal.solve``), over the
+    ranks of ``mesh`` when one is given."""
     P, L = num_poses, num_loops
     graph = _Graph(edges, free_mask, P, L, switch_penalty, edge_loss)
     dtype, device = graph.dtype, graph.device
@@ -1026,7 +1085,7 @@ def _pose_graph_solve_sparse(
             B_ab = B_ab - ig * (Jac[:, :, None] * Jbc[:, None, :])
 
         dvec = lam * d_p + graph.fixed_p + 1e-8  # damping + gauge + floor
-        dp = multifrontal.solve(plan, ref_i, qry_i, B_aa, B_bb, B_ab, dvec, b_p)
+        dp = multifrontal.solve(plan, ref_i, qry_i, B_aa, B_bb, B_ab, dvec, b_p, mesh=mesh)
 
         if L > 0:
             ds = graph.back_substitute(J_ref, J_query, J_s, dp[ref_i], dp[qry_i], g_s_e, inv_gamma)
@@ -1346,6 +1405,16 @@ def _marginal_blocks(method: str, J_ref: Tensor, J_qry: Tensor, J_s: Tensor,
 # ---------------------------------------------------------------------------
 
 
+# the JAX package's text, word for word
+_MESH_SOLVERS = (
+    "mesh sharding is implemented for the matrix-free CG path "
+    "(edges sharded, whole-loop replication) and the sparse "
+    "multifrontal path (fronts partitioned by XLA SPMD over a "
+    "Mesh with a 'factors' axis); pass solver='cg' or "
+    "solver='sparse' with mesh=..."
+)
+
+
 class PoseGraphOptimizer:
     """Mirror of the reference API (pose_graph_optimizer.h:21-108) with a
     real analytic solve."""
@@ -1376,7 +1445,13 @@ class PoseGraphOptimizer:
         multifrontal Cholesky (``solvers/multifrontal.py``) for loop-rich
         graphs whose band is fat; "cg" is matrix-free preconditioned CG
         (``cg_iterations`` per LM step, ``cg_precond`` "chain" or
-        "jacobi"). ``mesh=`` is not ported yet (ROADMAP A.8).
+        "jacobi").
+
+        ``mesh``: optional ``parallel.FactorMesh`` for the "cg" path (the
+        edges sharded over the ranks of a process group, every edge
+        reduction summed across them, the LM and CG loop the same on every
+        rank) and the "sparse" path (each tree level's fronts factored
+        block by block over the ranks and gathered).
 
         ``edge_loss``: optional robust loss (e.g. ``HuberLoss``) over each
         edge block's squared residual norm, Ceres-style.
@@ -1387,12 +1462,10 @@ class PoseGraphOptimizer:
             raise ValueError(f"unknown solver {solver!r}")
         if cg_precond not in ("chain", "jacobi"):
             raise ValueError(f"unknown cg_precond {cg_precond!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "PoseGraphOptimizer(mesh=) is not ported to the PyTorch "
-                "package yet (ROADMAP A.8)"
-            )
+        if mesh is not None and solver not in ("cg", "sparse"):
+            raise ValueError(_MESH_SOLVERS)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.dtype = dtype
         self.solver = solver
         self.cg_iterations = cg_iterations
@@ -1781,7 +1854,7 @@ class PoseGraphOptimizer:
             sp = self._flatten_sparse(flat, positions)
             pose, sw, summary = _pose_graph_solve_sparse(
                 pose0, switches0, flat["edges_dev"], tensor(free), *common, P, L,
-                sp["plan"], options,
+                sp["plan"], options, self.mesh,
             )
         elif solver == "banded":
             bd = self._flatten_banded(flat)
@@ -1802,7 +1875,7 @@ class PoseGraphOptimizer:
         elif solver == "cg":
             pose, sw, summary = _pose_graph_solve_cg(
                 pose0, switches0, flat["edges_dev"], tensor(free), *common, P, L,
-                options, self.cg_iterations, self.cg_precond,
+                options, self.cg_iterations, self.cg_precond, self.mesh,
             )
         else:
             pose, sw, summary = _pose_graph_solve(
@@ -2206,6 +2279,7 @@ class PoseGraphOptimizer2D:
         cg_iterations: int = 250,
         cg_precond: str = "chain",
         device="cuda",
+        mesh=None,
     ):
         """``solver``: "auto" picks dense/banded/sparse/cg from the
         graph's topology at solve() time (:func:`select_solver`; the
@@ -2219,11 +2293,18 @@ class PoseGraphOptimizer2D:
         bandwidth grows with the arena diameter.
 
         ``device``: where the solve runs, default "cuda"; raises without a
-        GPU unless "cpu" is asked for."""
+        GPU unless "cpu" is asked for.
+
+        ``mesh``: a ``parallel.FactorMesh`` for the "cg" and "sparse" paths,
+        as on the 3D optimizer (the JAX package's SE(2) optimizer takes
+        none)."""
         if solver not in ("auto", "dense", "cg", "banded", "sparse"):
             raise ValueError(f"unknown solver {solver!r}")
         if cg_precond not in ("chain", "jacobi"):
             raise ValueError(f"unknown cg_precond {cg_precond!r}")
+        if mesh is not None and solver not in ("cg", "sparse"):
+            raise ValueError(_MESH_SOLVERS)
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.dtype = dtype
         self.edge_loss = edge_loss
@@ -2404,7 +2485,7 @@ class PoseGraphOptimizer2D:
         if solver == "sparse":
             plan = self._sparse_symbolic(P, ref_np, qry_np, xyt)
             out_xyt, sw, summary = _pose_graph_solve_sparse(
-                tensor(xyt), switches0, edges, tensor(free), *common, plan, options,
+                tensor(xyt), switches0, edges, tensor(free), *common, plan, options, self.mesh,
             )
         elif solver == "banded":
             # host symbolic phase (the 3D optimizer's _flatten_banded
@@ -2432,7 +2513,7 @@ class PoseGraphOptimizer2D:
         elif solver == "cg":
             out_xyt, sw, summary = _pose_graph_solve_cg(
                 tensor(xyt), switches0, edges, tensor(free), *common, options,
-                self.cg_iterations, self.cg_precond,
+                self.cg_iterations, self.cg_precond, self.mesh,
             )
         else:
             out_xyt, sw, summary = _pose_graph_solve(

@@ -1,3 +1,16 @@
-from . import evaluation, testing
+from . import bimap, checkpoint, evaluation, testing, time_checker
+from .bimap import UnorderedBimap
+from .time_checker import TimeChecker, TimeCheckerManager, check_exec_time, device_time
 
-__all__ = ["evaluation", "testing"]
+__all__ = [
+    "bimap",
+    "checkpoint",
+    "evaluation",
+    "testing",
+    "time_checker",
+    "TimeChecker",
+    "TimeCheckerManager",
+    "UnorderedBimap",
+    "check_exec_time",
+    "device_time",
+]

@@ -15,8 +15,10 @@
   against the dense product (rtol 1e-12).
 - a system that is not positive definite gives a NaN solution and does not
   raise; the plan's device index maps are built once per device.
-- ``mesh=`` raises NotImplementedError naming ROADMAP A.8 (the selected
-  inverse is held in tests/test_torch_covariance.py).
+- ``mesh=`` with a world of one (no process group) gives the unsharded
+  factor and solution bit for bit; worlds of 2 and 4 are held in
+  tests/test_torch_sharded.py, the selected inverse in
+  tests/test_torch_covariance.py.
 """
 
 import jax
@@ -261,9 +263,13 @@ def test_device_maps_are_built_once_per_device():
 
 
 def test_unported_parts_raise():
+    from nonlinear_optimizer_for_slam_tpu_torch.parallel import make_factor_mesh
+
     ea, eb, B_aa, B_bb, B_ab, diag, b, _ = _random_block_system(6, 3, 2, seed=3)
     plan = tmf.symbolic(6, ea, eb, 2, leaf_size=16)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tmf.factor(plan, *_t(B_aa, B_bb, B_ab, diag), mesh=object())
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tmf.solve(plan, *_t(ea, eb, B_aa, B_bb, B_ab, diag, b), mesh=object())
+    mesh = make_factor_mesh(device="cpu")
+    for (L_m, W_m), (L, W) in zip(tmf.factor(plan, *_t(B_aa, B_bb, B_ab, diag), mesh=mesh),
+                                  tmf.factor(plan, *_t(B_aa, B_bb, B_ab, diag))):
+        assert torch.equal(L_m, L) and torch.equal(W_m, W)
+    args = _t(ea, eb, B_aa, B_bb, B_ab, diag, b)
+    assert torch.equal(tmf.solve(plan, *args, mesh=mesh), tmf.solve(plan, *args))

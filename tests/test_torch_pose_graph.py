@@ -29,8 +29,9 @@ same. Also:
   a 120-pose chain with 40 corrections (the chunked Woodbury form, with a
   reversed and a doubled chain edge) by tridiag, against JAX (counts
   equal, poses within 1e-8);
-- the unported option raises NotImplementedError naming its ROADMAP item
-  (mesh= A.8), and the ValueErrors are JAX's word for word.
+- ``mesh=`` is taken by the cg and sparse paths (held in
+  tests/test_torch_sharded.py) and refused by the others with JAX's
+  ValueError, and the ValueErrors are JAX's word for word.
 """
 
 import numpy as np
@@ -405,8 +406,16 @@ def test_chunked_woodbury_tridiag_matches_jax():
 
 
 def test_unported_options_raise(fixture):
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tpg.PoseGraphOptimizer(solver="cg", mesh=object(), device="cpu")
+    from nonlinear_optimizer_for_slam_tpu.parallel import make_factor_mesh as jax_mesh
+    from nonlinear_optimizer_for_slam_tpu_torch.parallel import make_factor_mesh
+
+    mesh = make_factor_mesh(device="cpu")
+    # mesh= is ported for cg and sparse; the other solvers refuse it as JAX does
+    for solver in ("cg", "sparse"):
+        assert tpg.PoseGraphOptimizer(solver=solver, mesh=mesh, device="cpu").mesh is mesh
+    assert _error(lambda: tpg.PoseGraphOptimizer(solver="dense", mesh=mesh, device="cpu")) == (
+        _error(lambda: jpg.PoseGraphOptimizer(solver="dense", mesh=jax_mesh()))
+    )
     opt = _build("torch", fixture)
     # solver="sparse" and initialize() are ported: neither raises
     assert tpg.PoseGraphOptimizer(solver="sparse", device="cpu").solver == "sparse"
