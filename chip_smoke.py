@@ -50,7 +50,15 @@ card over gloo (host-staged partials) running every ``mesh=`` path (the
 four minimizers and the registrar through their kernels, CG and sparse)
 against the unsharded calls, with a one-rank NCCL group's maha6 solve
 bitwise the unsharded one; and ``utils.time_checker``'s ``device_time``
-and ``trace``.
+and ``trace``. Then the native host pipeline (``native.py``: its g++ build
+timed from an empty ``build/torch_native/``, the C++ map builder and
+voxel filter against the numpy copy on the room), ``HybridRegistrar``
+(native matching on the host, the maha6 and planar maha3 LM on the card,
+one launch per LM evaluation) beside ``register_ndt`` and the
+``NdtRegistrar``, ``examples/full_slam.py`` at its defaults with its
+fixed-lag smoother's updates replayed on the CPU port, ``fixed_lag_slam``
+blocking and streaming, and every other example as a subprocess on the
+card.
 Every phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code.
 The line before the last is the ``kernels`` summary, the last line
@@ -171,10 +179,15 @@ def main() -> int:
     # ---- the fixture (shared by every phase) ------------------------------
     t0 = time.perf_counter()
     pts = testing.generate_room_points()
+    t1 = time.perf_counter()
     ndt_map = ndt.build_ndt_map(pts, 1.0)
+    t2 = time.perf_counter()
     p2p_map = ndt.build_ndt_map(pts, 1.0, identity_moment=False)
+    t3 = time.perf_counter()
     scan = ndt.filter_points(pts, 0.1)
     fixture_s = time.perf_counter() - t0
+    # the numpy builder's times, beside the native ones (native_pipeline)
+    numpy_s = {"build_ndt_map_s": t2 - t1, "filter_points_s": fixture_s - (t3 - t0)}
     if pts.shape[0] != 954605 or int(ndt_map.valid.sum()) != 96 or scan.shape[0] != 9356:
         raise AssertionError((pts.shape, int(ndt_map.valid.sum()), scan.shape))
     true_pose = testing.maha_true_pose()
@@ -1368,6 +1381,14 @@ def main() -> int:
         local=local, local_planar=local_planar, p2p_start=p2p_start,
     ))
     _time_checker(dev, name, smi, matched)
+    # ---- slice 12: the native host pipeline, HybridRegistrar, fixed-lag,
+    # the examples ---------------------------------------------------------
+    nat_map, nat_scan = _native_pipeline(name, smi, pts, ndt_map, scan, numpy_s)
+    slice12_launches = _hybrid_registrar(dev, name, smi, nat_map, nat_scan, true_pose,
+                                         planar_pose)
+    slice12_launches.update(_fixed_lag(dev, name, smi))
+    slice12_launches.update(_examples(dev, name, smi))
+    emit("slice12_launches", launches=slice12_launches, device=name, nvidia_smi=smi)
 
     kernels = []
     for kernel in KERNEL_SHAPE:
@@ -2941,6 +2962,434 @@ def _time_checker(dev, name: str, smi: str, matched) -> None:
     mgr.reset()
 
 
+# ---- slice 12 --------------------------------------------------------------
+
+# tests/test_native.py's tolerance on the information eigenvalues
+NATIVE_EIG_RTOL = 1e-8
+# HybridRegistrar against NdtRegistrar, as tests/test_native.py:175-186
+HYBRID_POSE_TOL = 1e-4
+# the fixed-lag window solve on the card against the same updates replayed
+# on the CPU port, float64
+FIXED_LAG_TOL = 1e-9
+RATE_STARTS = 10  # bench.py's pure-rate probe: distinct starts
+
+
+def _lm_evaluations(inner, outer: int, max_it: int) -> int:
+    """LM evaluations of the inner solves from their reported counts: one
+    more than the count on a tolerance stop, max_it at the cap."""
+    return sum(min(int(i) + 1, max_it) for i in inner[:outer])
+
+
+def _voxel_order(m):
+    """Voxel keys floor(mean / 1 m) of an NDT map, in sorted order, and the
+    order that sorts them (the native builder lists voxels in another
+    order than numpy's)."""
+    keys = np.floor(m.means).astype(np.int64)
+    order = np.lexsort(keys.T[::-1])
+    return keys[order], order
+
+
+def _native_pipeline(name: str, smi: str, pts, map_np, scan_np, numpy_s: dict):
+    """The port's native build timed from an empty build/torch_native/, then
+    ``build_ndt_map`` and ``filter_points`` on the full room, native against
+    the numpy copy: the scan equal exactly; voxel keys, counts, validity and
+    means equal; the information eigenvalues within NATIVE_EIG_RTOL."""
+    import shutil
+
+    from nonlinear_optimizer_for_slam_tpu_torch import native
+
+    shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    native.ensure_built()
+    build_s = time.perf_counter() - t0
+    lib = native.load()
+    t0 = time.perf_counter()
+    m = native.build_ndt_map(pts, 1.0)
+    map_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scan = native.filter_points(pts, 0.1)
+    filter_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.build_ndt_map(pts, 1.0, num_threads=0)  # threaded: not bitwise
+    threaded_s = time.perf_counter() - t0
+
+    keys_nat, o_nat = _voxel_order(m)
+    keys_np, o_np = _voxel_order(map_np)
+    scan_equal = np.array_equal(scan, scan_np)
+    same = (keys_nat.shape == keys_np.shape and np.array_equal(keys_nat, keys_np)
+            and np.array_equal(m.counts[o_nat], map_np.counts[o_np])
+            and np.array_equal(m.valid[o_nat], map_np.valid[o_np]))
+    means_equal = same and np.array_equal(m.means[o_nat], map_np.means[o_np])
+    eig_err = float("inf")
+    if same:
+        e_nat = np.sort(np.linalg.eigvalsh(m.informations[o_nat]), axis=1)
+        e_np = np.sort(np.linalg.eigvalsh(map_np.informations[o_np]), axis=1)
+        eig_err = float((np.abs(e_nat - e_np) / np.abs(e_np)).max())
+    if not (scan_equal and same and means_equal and eig_err <= NATIVE_EIG_RTOL):
+        raise AssertionError(
+            f"native_pipeline: scan equal {scan_equal}, keys/counts/valid equal {same}, "
+            f"means equal {means_equal}, eigenvalue rel err {eig_err}"
+        )
+    emit(
+        "native_pipeline", abi=int(lib.nls_abi_version()), build_s=build_s,
+        library=os.path.relpath(str(native.library_path()), REPO),
+        points=int(pts.shape[0]), voxels=int(m.num_voxels), valid=int(m.valid.sum()),
+        scan=int(scan.shape[0]),
+        native={"build_ndt_map_s": map_s, "filter_points_s": filter_s,
+                "build_ndt_map_threaded_s": threaded_s, "threads": os.cpu_count()},
+        numpy=numpy_s,
+        speedup={"build_ndt_map": numpy_s["build_ndt_map_s"] / map_s,
+                 "filter_points": numpy_s["filter_points_s"] / filter_s},
+        scan_equal=True, keys_counts_valid_equal=True, means_equal=True,
+        information_eigenvalue_max_rel_err=eig_err, eig_rtol=NATIVE_EIG_RTOL,
+        device=name, nvidia_smi=smi,
+    )
+    return m, scan
+
+
+def _hybrid_registrar(dev, name: str, smi: str, nat_map, nat_scan, true_pose,
+                      planar_pose) -> dict:
+    """``HybridRegistrar`` on the maha-simple scan from the identity (k = 2,
+    18,712 lanes): maha6 launches equal to LM evaluations, t_err < 0.05, the
+    pose within HYBRID_POSE_TOL of ``NdtRegistrar``'s; the kernel on the
+    C++-packed buffer against its plain version; the median of 20 beside
+    ``register_ndt`` and ``NdtRegistrar.register``; one outer iteration
+    split into matching, upload and LM; the planar variant through maha3;
+    bench.py's pure-rate probe (``_packed_lm_solve`` held to 40
+    iterations, RATE_STARTS starts). Returns the launches of the paths."""
+    import torch
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch import native
+    from nonlinear_optimizer_for_slam_tpu_torch.core.options import ConvergenceHandle
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.pipelines import fused_registration as fr
+
+    loss = port.ExponentialLoss(1.0, 1.0)
+    opts = port.Options()
+    max_it = opts.max_iterations
+    identity = port.Pose.identity()
+    local = true_pose.inverse().apply(nat_scan)
+    hyb = fr.HybridRegistrar(nat_map, opts, loss, num_threads=0, device=dev)
+    reg = fr.NdtRegistrar(nat_map, opts, loss, device=dev)
+    minimizer = port.MahalanobisDistanceMinimizer(device=dev).set_loss_function(loss)
+    hyb.register(local, identity)  # warm-up: the kernels and the buffers
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    res = hyb.register(local, identity)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    evals = _lm_evaluations(res.inner_iterations, res.outer_iterations, max_it)
+    res_reg = reg.register(local, identity)
+    t_err = float(np.linalg.norm(res.pose.translation - true_pose.translation))
+    dt = float(np.abs(res.pose.translation - res_reg.pose.translation).max())
+    dR = float(np.abs(res.pose.rotation - res_reg.pose.rotation).max())
+    others = {k: v for k, v in launches.items() if k != "maha6" and v}
+    if not (launches["maha6"] == evals > 0 and not others and t_err < 0.05
+            and max(dt, dR) < HYBRID_POSE_TOL):
+        raise AssertionError(
+            f"hybrid_registrar: launches {launches} for {evals} LM evaluations, "
+            f"t_err {t_err}, pose vs NdtRegistrar translation {dt} rotation {dR}"
+        )
+
+    # one outer iteration at the identity, layer by layer
+    valid = nat_map.valid_only()
+    nk = local.shape[0] * 2
+    lanes = -(-nk // ck.LANE_ALIGN) * ck.LANE_ALIGN
+    host = torch.empty((16, lanes), dtype=torch.float32, pin_memory=True)
+    dev_buf = torch.empty((16, lanes), dtype=torch.float32, device=dev)
+    host_np = host.numpy()
+    match = lambda: native.match_and_pack(
+        local, np.eye(3), np.zeros(3), valid.means, valid.sqrt_informations, 1.0, 2,
+        lanes, out=host_np, num_threads=0,
+    )
+    match_ms = _wall_ms(match, 20)
+    match()
+    upload_ms = _wall_ms(lambda: dev_buf.copy_(host, non_blocking=True), 20)
+    packed = dev_buf[:, :nk]
+    t0 = torch.zeros(3, device=dev)
+    q0 = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    lm_ms = _wall_ms(lambda: fr._packed_lm_solve(t0, q0, packed, loss, opts)[3].item(), 20)
+
+    # the kernel on the C++-packed buffer against its plain version
+    code, loss_ab = ck.maha6_loss_ab(loss, dev)
+    params = ck.maha6_params(torch.eye(3, device=dev), t0, loss_ab)[None]
+    got = ck.maha6_partials(params, packed[None], code)
+    all_terms = ck.maha6_terms(params, packed[None], code)
+    want, scale = all_terms.sum(dim=-1), _error_scale(all_terms)
+    err = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or bool((err > RTOL * scale + ATOL).any()):
+        raise AssertionError(f"hybrid_registrar: kernel {got.tolist()} vs plain {want.tolist()}")
+    real = int(host_np[15].sum())
+
+    walls = {
+        "hybrid_register": _walls_ms(lambda: hyb.register(local, identity), 20),
+        "register_ndt": _walls_ms(
+            lambda: port.register_ndt(nat_map, local, identity, minimizer, opts), 20),
+        "ndt_registrar_register": _walls_ms(lambda: reg.register(local, identity), 20),
+    }
+
+    # the planar variant through maha3
+    local_p = planar_pose.inverse().apply(nat_scan)
+    hyb_p = fr.HybridRegistrar(nat_map, opts, loss, planar=True, num_threads=0, device=dev)
+    ck.reset_launches()
+    res_p = hyb_p.register(local_p, identity)
+    torch.cuda.synchronize()
+    launches_p = dict(ck.LAUNCHES)
+    evals_p = _lm_evaluations(res_p.inner_iterations, res_p.outer_iterations, max_it)
+    others_p = {k: v for k, v in launches_p.items() if k != "maha3" and v}
+    if not (launches_p["maha3"] == evals_p > 0 and not others_p):
+        raise AssertionError(f"hybrid_registrar planar: launches {launches_p} for "
+                             f"{evals_p} LM evaluations")
+    res_p_reg = fr.NdtRegistrar(nat_map, opts, loss, planar=True, device=dev).register(
+        local_p, identity)
+    planar_diff = float(np.abs(res_p.pose.matrix() - res_p_reg.pose.matrix()).max())
+
+    # bench.py's pure-rate probe: 40 iterations a solve, distinct starts
+    rate_opts = opts.replace(convergence_handle=ConvergenceHandle(0.0, 0.0, 0.0))
+    starts = [t0 + torch.tensor([1e-6 * (r + 1), 0.0, 0.0], device=dev)
+              for r in range(RATE_STARTS)]
+    fr._packed_lm_solve(starts[0], q0, packed, loss, rate_opts)[2].item()
+    rate_ms, rate_iters = [], []
+    for start in starts:
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out = fr._packed_lm_solve(start, q0, packed, loss, rate_opts)
+        rate_iters.append(int(out[2].item()))
+        rate_ms.append((time.perf_counter() - t_start) * 1e3)
+    if set(rate_iters) != {max_it}:
+        raise AssertionError(f"hybrid_registrar rate probe: iterations {rate_iters}")
+
+    emit(
+        "hybrid_registrar", lanes=nk, real_lanes=real, buffer_ld=lanes,
+        outer=res.outer_iterations, inner=res.inner_iterations[: res.outer_iterations].tolist(),
+        lm_evaluations=evals, maha6_launches=launches["maha6"], t_err_mm=t_err * 1e3,
+        pose_vs_ndt_registrar={"translation": dt, "rotation": dR, "tol": HYBRID_POSE_TOL},
+        final_cost=res.final_cost,
+        kernel_vs_plain_max_abs_err=err.max().item(), rtol_of_abs_sum=RTOL, atol=ATOL,
+        walls_median_ms={k: statistics.median(v) for k, v in walls.items()},
+        walls_min_ms={k: min(v) for k, v in walls.items()}, runs=20,
+        outer_iteration_split_ms={"match_and_pack": match_ms, "upload": upload_ms,
+                                  "lm_solve": lm_ms, "lm_iterations": int(res.inner_iterations[0]),
+                                  "match_threads": os.cpu_count()},
+        planar={"outer": res_p.outer_iterations,
+                "inner": res_p.inner_iterations[: res_p.outer_iterations].tolist(),
+                "lm_evaluations": evals_p, "maha3_launches": launches_p["maha3"],
+                "pose_vs_ndt_registrar": planar_diff},
+        rate_probe={"iterations": max_it, "starts": RATE_STARTS,
+                    "median_ms_per_solve": statistics.median(rate_ms), "ms": rate_ms,
+                    "iterations_per_s": max_it / (statistics.median(rate_ms) * 1e-3)},
+        device=name, nvidia_smi=smi,
+    )
+    return {"hybrid_maha6": launches["maha6"], "hybrid_planar_maha3": launches_p["maha3"]}
+
+
+def _fixed_lag(dev, name: str, smi: str) -> dict:
+    """``full_slam.main()`` at its defaults on the card, its smoother's
+    updates recorded and replayed on the CPU port (window poses and switches
+    within FIXED_LAG_TOL after every update, LM counts equal), then
+    ``fixed_lag_slam`` blocking and streaming. Returns the launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.examples import fixed_lag_slam, full_slam
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers import fixed_lag as fl
+
+    class Recorder(fl.FixedLagSmoother):
+        """Records every registry call and, after each update, the window
+        state, the LM count and the update's wall time."""
+
+        made = []
+
+        def __init__(self, lag, **kw):
+            super().__init__(lag, **kw)
+            self.kwargs = dict(lag=lag, **{k: v for k, v in kw.items() if k != "device"})
+            self.calls, self.states, self.update_ms = [], [], []
+            Recorder.made.append(self)
+
+        def add_pose(self, index, pose):
+            self.calls.append(("add_pose", index, pose.copy()))
+            super().add_pose(index, pose)
+
+        def add_odometry(self, a, b, rel, sqrt_info=None):
+            self.calls.append(("add_odometry", a, b, rel.copy(), sqrt_info))
+            super().add_odometry(a, b, rel, sqrt_info)
+
+        def add_loop(self, a, b, rel, sqrt_info=None):
+            self.calls.append(("add_loop", a, b, rel.copy(), sqrt_info))
+            super().add_loop(a, b, rel, sqrt_info)
+
+        def update(self, options=None):
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            summary = super().update(options)
+            torch.cuda.synchronize()
+            self.update_ms.append((time.perf_counter() - t_start) * 1e3)
+            self.calls.append(("update",))
+            self.states.append(_smoother_state(self, summary))
+            return summary
+
+    saved = port.solvers.FixedLagSmoother
+    port.solvers.FixedLagSmoother = Recorder
+    out = io.StringIO()
+    try:
+        ck.reset_launches()
+        t_start = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            e_sm, e_od = full_slam.main(device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t_start
+        launches = dict(ck.LAUNCHES)
+    finally:
+        port.solvers.FixedLagSmoother = saved
+    text = out.getvalue()
+    (rec,) = Recorder.made
+    switch_lines = [l for l in text.splitlines() if "switch after update" in l]
+    planted = float(switch_lines[0].split()[-1]) if switch_lines else float("nan")
+
+    # the same updates on the CPU port
+    cpu = fl.FixedLagSmoother(device="cpu", **rec.kwargs)
+    pose_err = switch_err = 0.0
+    counts_equal, k = True, 0
+    for call in rec.calls:
+        if call[0] == "update":
+            got = _smoother_state(cpu, cpu.update())
+            want = rec.states[k]
+            k += 1
+            counts_equal &= got["iterations"] == want["iterations"]
+            pose_err = max(pose_err, float(np.abs(got["window"] - want["window"]).max()))
+            if want["switches"].size:
+                switch_err = max(switch_err,
+                                 float(np.abs(got["switches"] - want["switches"]).max()))
+        else:
+            getattr(cpu, call[0])(*call[1:])
+    if not (planted < 0.15 and e_sm < 0.6 * e_od and e_sm < 0.2 and counts_equal
+            and max(pose_err, switch_err) <= FIXED_LAG_TOL):
+        raise AssertionError(
+            f"fixed_lag: planted switch {planted}, error SLAM {e_sm} vs odometry {e_od}, "
+            f"CPU replay counts equal {counts_equal}, pose err {pose_err}, "
+            f"switch err {switch_err}\n{text[-2000:]}"
+        )
+
+    lines = {}
+    for mode, argv in (("blocking", []), ("stream", ["--stream"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fixed_lag_slam.main(argv + ["--device", str(dev)])
+        got = buf.getvalue().splitlines()
+        update = next(l for l in got if "median per-frame update" in l)
+        outlier = next(l for l in got if "planted outlier loop switch" in l)
+        err_line = next(l for l in got if l.startswith("trajectory error"))
+        nums = [float(w) for w in err_line.replace("/", " ").split() if _is_float(w)]
+        switch = float(outlier.split("->")[1].split()[0])
+        if not (switch < 0.15 and nums[0] < nums[2]):
+            raise AssertionError(f"fixed_lag_slam {mode}: {got}")
+        lines[mode] = {
+            "median_ms_per_update": float(update.split("update")[1].split()[0]),
+            "planted_switch": switch, "smoother_mean_m": nums[0], "smoother_max_m": nums[1],
+            "dead_reckoning_mean_m": nums[2], "dead_reckoning_max_m": nums[3],
+        }
+    emit(
+        "fixed_lag", full_slam={
+            "frames": 48, "scan_points": 1500, "wall_s": wall_s,
+            "updates": len(rec.update_ms), "ms_per_update_median": statistics.median(rec.update_ms),
+            "ms_per_update_max": max(rec.update_ms),
+            "lm_iterations": [s["iterations"] for s in rec.states],
+            "lap2_error_m": {"slam": e_sm, "odometry": e_od}, "planted_switch": planted,
+            "launches": {k: v for k, v in launches.items() if v},
+            "cpu_replay": {"counts_equal": True, "pose_max_abs_err": pose_err,
+                           "switch_max_abs_err": switch_err, "tol": FIXED_LAG_TOL},
+        },
+        fixed_lag_slam=lines, dtype="float64", device=name, nvidia_smi=smi,
+    )
+    return {"full_slam_" + k: v for k, v in launches.items() if v}
+
+
+def _smoother_state(sm, summary) -> dict:
+    """The window estimates (W, 7), the active loops' switches and the LM
+    count of a fixed-lag smoother right after an update."""
+    return {
+        "window": np.stack([sm._est[i] for i in sm._window]),
+        "switches": np.array([l["switch"] for l in sm._loops]),
+        "iterations": int(summary.iterations),
+    }
+
+
+def _is_float(word: str) -> bool:
+    try:
+        float(word)
+        return True
+    except ValueError:
+        return False
+
+
+# example -> (arguments, the line it must print)
+EXAMPLES = {
+    "pose_graph_slam": ([], "loop switches (last one is the planted outlier)"),
+    "g2o_solve": (["--max-iterations", "60"], "solved in"),
+    "hand_eye_calibration": ([], "rotation error:"),
+    "ndt_registration": ([], "map builder: native"),
+    "serving_batch": ([], "batched registration:"),
+    "incremental_mapping": ([], "scan-to-map   error:"),
+    "multi_robot_map_merge": ([], "planted false-rendezvous switch:"),
+}
+
+
+def _examples(dev, name: str, smi: str) -> dict:
+    """Every example that the phases above do not drive, as a subprocess on
+    the card, all at once: exit code 0 and its key line. Then
+    ``serving_batch`` in this process, for its launches. Returns them."""
+    import contextlib
+    import io
+
+    import torch
+
+    from nonlinear_optimizer_for_slam_tpu_torch.examples import serving_batch
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+
+    out_dir = os.path.join(REPO, "build", "smoke_examples")
+    os.makedirs(out_dir, exist_ok=True)
+    procs, report = {}, {}
+    try:
+        for ex, (args, _) in EXAMPLES.items():
+            if ex == "g2o_solve":
+                args = args + ["-o", os.path.join(out_dir, "solved.g2o")]
+            procs[ex] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", f"nonlinear_optimizer_for_slam_tpu_torch.examples.{ex}",
+                 *args, "--device", "cuda"],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+        for ex, (t_start, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            key = EXAMPLES[ex][1]
+            lines = [l for l in stdout.splitlines() if key in l]
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"example {ex}: rc {proc.returncode}, key line {key!r} "
+                                     f"{'found' if lines else 'missing'}\n{stdout[-1500:]}"
+                                     f"\n{stderr[-1500:]}")
+            report[ex] = {"rc": 0, "wall_s": time.perf_counter() - t_start,
+                          "key_line": lines[0], "tail": stdout.splitlines()[-3:]}
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ck.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        serving_batch.main(device=dev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+    if not (launches.get("reproj", 0) > 0 and launches.get("maha6", 0) > 0):
+        raise AssertionError(f"serving_batch: launches {launches}")
+    emit("examples", examples=report, concurrent=len(procs),
+         serving_batch_launches=launches, device=name, nvidia_smi=smi)
+    return {"serving_batch_" + k: v for k, v in launches.items()}
+
+
 def _evaluations(summaries) -> int:
     """LM evaluations of the inner solves: their recorded costs."""
     import torch
@@ -3045,13 +3494,20 @@ def _profile(fn, warm: bool = True) -> dict:
     )
     device_ms = sum(r[0] for r in rows) / 1000.0
     # the port's own kernels by name (which finish) and template arguments
-    # (which factor), argument list cut
-    port_kernels = {k[: k.find(">(") + 1]: c for _, k, c in rows if "nls::" in k}
+    # (which factor), argument list cut; two trace keys that share a name
+    # (the same kernel under two keys) add up, and the raw keys go in the
+    # line, so that a count short of ck.LAUNCHES shows which keys it had
+    port_kernels, port_kernel_keys = {}, {}
+    for _, k, c in rows:
+        if "nls::" in k:
+            prefix = k[: k.find(">(") + 1]
+            port_kernels[prefix] = port_kernels.get(prefix, 0) + c
+            port_kernel_keys[k] = c
     return dict(
         wall_ms=wall_ms, device_busy_ms=device_ms,
         device_idle_share=(1.0 - device_ms / wall_ms) if device_ms else None,
         device_kernels=sum(r[2] for r in rows), port_kernels=port_kernels,
-        port_launches=launches,
+        port_kernel_keys=port_kernel_keys, port_launches=launches,
         top_device=[{"name": k[:80], "ms": us / 1000.0, "count": c} for us, k, c in rows[:10]],
         top_host=[{"name": k[:80], "ms": us / 1000.0, "count": c} for us, k, c in host[:10]],
     )

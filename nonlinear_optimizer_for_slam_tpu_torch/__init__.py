@@ -25,9 +25,16 @@ plain PyTorch ops, as the JAX package's run in XLA; so do the generic pose
 problem (``solvers.problem``) and the small utilities (``utils``).
 ``parallel`` shards the minimizers, the registrar and the CG and sparse
 pose-graph paths over a ``torch.distributed`` group (``mesh=``).
+``native`` binds the repository's C++ host pipeline (``native/``: the NDT
+map builder, the voxel filter and the matcher that writes the maha6
+buffer), built with g++ at first use; ``HybridRegistrar`` matches with it
+on the host and solves on the card. ``FixedLagSmoother`` is the online
+sliding-window pose-graph smoother. ``examples`` holds the user-facing
+examples, each run as ``python -m
+nonlinear_optimizer_for_slam_tpu_torch.examples.<name>``.
 """
 
-from . import core, interop, io, ops, parallel, pipelines, solvers, utils
+from . import core, interop, io, native, ops, parallel, pipelines, solvers, utils
 from .core import (
     CauchyLoss,
     DCSLoss,
@@ -44,6 +51,7 @@ from .core import (
 from .pipelines import (
     D2dRegistrar,
     FusedRegistrationResult,
+    HybridRegistrar,
     LoopClosure,
     LoopClosureDetector,
     NdtMap,
@@ -60,6 +68,7 @@ from .pipelines import (
 )
 from .solvers import (
     ConstraintType,
+    FixedLagSmoother,
     MahalanobisDistanceMinimizer,
     MahalanobisDistanceMinimizer3DOF,
     PointToPlaneMinimizer,

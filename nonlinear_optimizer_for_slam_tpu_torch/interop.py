@@ -52,6 +52,11 @@ a given device:
 
 :func:`to_reference` is the inverse but for ``problem``: the same dicts
 back, as numpy (the intrinsics as floats and ints).
+
+:func:`fixed_lag_from_reference` builds a port ``FixedLagSmoother`` that
+carries a JAX ``FixedLagSmoother``'s state mid-stream (its window, its
+estimates and frozen history, its odometry and loops with their switches,
+and its marginal prior), so that both can go on from the same state.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from .core.pose import Pose
 from .ops.mahalanobis import MahalanobisData
 from .ops.relative_pose import PoseGraphEdges
 from .solvers import problem as problem_mod
+from .solvers.fixed_lag import FixedLagSmoother
 from .solvers.pose_graph import PoseGraph2DEdges
 from .ops.reprojection import CameraIntrinsics, ReprojectionData
 from .pipelines.fused_registration import RegistrarMap
@@ -349,3 +355,55 @@ def to_reference(state: PortState) -> dict:
             for f, a in zip(PoseGraph2DState._fields, state.pose_graph_2d_state)
         }
     return out
+
+
+def fixed_lag_from_reference(
+    state: Mapping[str, Any],
+    *,
+    lag: int,
+    switch_penalty: Optional[float] = None,
+    max_iterations: int = 50,
+    marginalize_every: int = 1,
+    device="cuda",
+    dtype: torch.dtype = torch.float64,
+) -> FixedLagSmoother:
+    """A port ``FixedLagSmoother`` in the state of a JAX one, given as
+    numpy (the JAX smoother's private fields of the same names, with no
+    update pending):
+
+    - ``window``: the active pose ids, oldest first;
+    - ``est``: {id: (7,) [p, q wxyz]} of the window poses;
+    - ``history``: {id: (7,)} of the marginalized (frozen) poses;
+    - ``odom``: a list of (ref, qry, rel_t (3,), rel_q (4,), sqrt_info),
+      sqrt_info None, (6,) or (6, 6);
+    - ``loops``: a list of dicts with ``ref``, ``qry``, ``rel_t``,
+      ``rel_q``, ``switch`` and ``sqrt_info``;
+    - ``prior``: None or (support ids, S (6B, 6B), x_lin (B, 7), c (6B,));
+    - ``gauge``: the gauge-fixed pose id, or None once a prior exists.
+
+    The keywords are the smoother's constructor arguments."""
+    sm = FixedLagSmoother(
+        lag, dtype=dtype, switch_penalty=switch_penalty, max_iterations=max_iterations,
+        marginalize_every=marginalize_every, device=device,
+    )
+    f64 = lambda a: np.array(a, np.float64)
+    opt = lambda a: None if a is None else f64(a)
+    sm._window = [int(i) for i in state["window"]]
+    sm._est = {int(k): f64(v) for k, v in state["est"].items()}
+    sm._history = {int(k): f64(v) for k, v in state["history"].items()}
+    sm._odom = [
+        (int(a), int(b), f64(t), f64(q), opt(w)) for a, b, t, q, w in state["odom"]
+    ]
+    sm._loops = [
+        dict(ref=int(l["ref"]), qry=int(l["qry"]), rel_t=f64(l["rel_t"]),
+             rel_q=f64(l["rel_q"]), switch=float(l["switch"]), sqrt_info=opt(l["sqrt_info"]))
+        for l in state["loops"]
+    ]
+    prior = state.get("prior")
+    if prior is not None:
+        ids, S, x_lin, c = prior
+        prior = ([int(i) for i in ids], f64(S), f64(x_lin), f64(c))
+    sm._prior = prior
+    gauge = state.get("gauge")
+    sm._gauge = None if gauge is None else int(gauge)
+    return sm

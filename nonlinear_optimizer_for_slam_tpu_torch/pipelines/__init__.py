@@ -2,6 +2,7 @@ from . import fused_d2d, fused_registration, loop_closure, matching, ndt, regist
 from .fused_d2d import D2dRegistrar
 from .fused_registration import (
     FusedRegistrationResult,
+    HybridRegistrar,
     NdtRegistrar,
     RegistrarMap,
     register_ndt_fused,
@@ -32,6 +33,7 @@ __all__ = [
     "registration",
     "D2dRegistrar",
     "FusedRegistrationResult",
+    "HybridRegistrar",
     "LoopClosure",
     "LoopClosureDetector",
     "NdtMap",

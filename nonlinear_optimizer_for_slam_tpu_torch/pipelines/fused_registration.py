@@ -56,6 +56,14 @@ not; ``"torch"`` unpacks it once per match and evaluates with the plain
 PyTorch factor code (the JAX ``"jnp"`` backend). On a CUDA device the
 default is ``"cuda"``; on the CPU ``"torch"`` is the only path.
 
+Host matching
+-------------
+``HybridRegistrar`` is the reference's host/device split (the JAX
+package's class of that name): the native C++ matcher (``native.py``)
+writes the maha6 buffer on the host each outer iteration, the buffer goes
+to the device in one copy, and ``_packed_lm_solve`` runs the inner LM over
+it with one kernel launch per LM evaluation.
+
 Sharding
 --------
 ``NdtRegistrar(mesh=)`` (a ``parallel.FactorMesh``) runs one registration
@@ -81,12 +89,13 @@ from ..core import lie
 from ..core.device import resolve_device
 from ..core.losses import LossFunction
 from ..core.options import Options
-from ..core.pose import Pose, np_quat_to_rotmat
+from ..core.pose import Pose, np_quat_to_rotmat, np_rotmat_to_quat
 from ..ops import cuda_kernels as ck
 from ..ops import mahalanobis as maha_ops
 from ..ops import point_to_plane as p2p_ops
 from ..ops.quadratic import _symmetric_gather
 from ..parallel import FactorMesh, factor_sharding, reducer
+from ..solvers import lm
 from ..solvers import minimizers as mins
 from ..solvers.linear import damp_hessian, solve_normal_equations
 from ..solvers.manifolds import SE2Params, SE3Params, se2_retract, se3_retract
@@ -721,3 +730,167 @@ def register_ndt_fused(
         max_outer_iterations, outer_tolerance, dtype, device=device,
     )
     return registrar.register(local_points, initial_pose)
+
+
+# ----------------------------------------------------------------------------
+# Hybrid registrar: native host matching, device LM
+# ----------------------------------------------------------------------------
+
+
+def _packed_lm_solve(t0: Tensor, q0: Tensor, packed: Tensor, loss, options: Options,
+                     planar: bool = False):
+    """LM over a prepacked (16, N) float32 correspondence buffer (the maha6
+    layout, for example ``native.match_and_pack``'s rows): 6-DoF through
+    the maha6 kernel, ``planar`` (x, y, yaw; z, roll and pitch kept) through
+    maha3, one launch per LM evaluation. ``t0`` (3,) and ``q0`` (4,) are on
+    ``packed``'s device in the LM's dtype; the loss tail is built once per
+    solve. On the card ``packed`` is laid out as ``ck.lane_aligned`` makes
+    it (a (16, N) view of a (16, ld) buffer, ld % 4 == 0, 16-byte aligned);
+    on the CPU the plain versions run. Returns (t, q, iterations,
+    final_cost), tensors on the device."""
+    code, loss_ab = ck.maha6_loss_ab(loss, packed.device)
+    batch = packed[None]  # a batch of one problem
+
+    if not planar:
+        def quad(params: SE3Params):
+            R = lie.quat_to_rotmat(params.quaternion)
+            kparams = ck.maha6_params(R, params.translation, loss_ab)[None]
+            out = ck.maha6_partials(kparams, batch, code)[0]
+            return ck.unpack_out(out.to(t0.dtype), 6)
+
+        params, summary = lm.solve(quad, se3_retract, SE3Params(t0, q0), options)
+        return params.translation, params.quaternion, summary.iterations, summary.final_cost
+
+    theta0 = 2.0 * torch.atan2(q0[3], q0[0])
+
+    def quad2(params: SE2Params):
+        kparams = ck.maha3_params(lie.rot2(params.theta), params.translation, loss_ab)[None]
+        out = ck.maha3_partials(kparams, batch, code)[0]
+        return ck.unpack_out(out.to(t0.dtype), 3)
+
+    p2, summary = lm.solve(quad2, se2_retract, SE2Params(t0[:2], theta0), options)
+    half = 0.5 * p2.theta
+    zero = torch.zeros_like(half)
+    q_new = torch.stack([torch.cos(half), zero, zero, torch.sin(half)])
+    return torch.cat([p2.translation, t0[2:]]), q_new, summary.iterations, summary.final_cost
+
+
+class HybridRegistrar:
+    """Scan-to-map registration with the reference's host/device split
+    (MatchPointCloud / Solve, SURVEY section 3.1): each outer iteration the
+    native C++ matcher (``native.match_and_pack``) writes the (16, N k)
+    maha6 buffer on the host, it goes to the device in one copy, and
+    :func:`_packed_lm_solve` runs the inner LM with one kernel launch per
+    evaluation, in float32. The same API and outer loop as the JAX
+    package's ``HybridRegistrar``; results are ``FusedRegistrationResult``.
+
+    The host buffer is a pinned torch tensor that the matcher writes
+    through a numpy view; it and the device buffer are allocated once per
+    lane count (N k rounded up to ``ck.LANE_ALIGN``, so the C++ rows are
+    already the kernels' layout). ``num_threads=0`` runs the matcher on
+    every host CPU. ``device`` defaults to "cuda"; on the CPU the buffer is
+    not copied and the plain versions of the kernels run."""
+
+    def __init__(
+        self,
+        ndt_map: NdtMap,
+        options: Options,
+        loss: Optional[LossFunction] = None,
+        search_radius: float = 1.0,
+        num_neighbors: int = 2,
+        max_outer_iterations: int = OUTER_MAX_ITERATIONS,
+        outer_tolerance: float = OUTER_TOLERANCE,
+        planar: bool = False,
+        num_threads: int = 0,
+        device="cuda",
+    ):
+        from .. import native
+
+        native.load()  # raise early if the native library does not build
+        self.device = resolve_device(device)
+        valid = ndt_map.valid_only()
+        self.means = np.ascontiguousarray(valid.means)
+        self.sqrt_infos = np.ascontiguousarray(valid.sqrt_informations)
+        self.options = options
+        self.loss = loss
+        self.search_radius = search_radius
+        self.num_neighbors = num_neighbors
+        self.max_outer_iterations = max_outer_iterations
+        self.outer_tolerance = outer_tolerance
+        self.planar = planar
+        self.num_threads = num_threads
+        self._host: Optional[Tensor] = None  # (16, lanes) pinned, reused
+        self._dev: Optional[Tensor] = None  # (16, lanes) on the device, reused
+
+    def _buffers(self, lanes: int):
+        if self._host is None or self._host.shape[1] != lanes:
+            on_card = self.device.type == "cuda"
+            self._host = torch.empty((16, lanes), dtype=torch.float32, pin_memory=on_card)
+            self._dev = (
+                torch.empty((16, lanes), dtype=torch.float32, device=self.device)
+                if on_card else self._host
+            )
+        return self._host, self._dev
+
+    def register(self, local_points, initial_pose: Pose) -> FusedRegistrationResult:
+        from .. import native
+
+        pts = np.ascontiguousarray(np.asarray(local_points, np.float64))
+        k = self.num_neighbors
+        nk = pts.shape[0] * k
+        host, dev = self._buffers(_round_up(nk, ck.LANE_ALIGN))
+        host_np = host.numpy()
+        packed = dev[:, :nk]  # the kernel's N is the real lane count
+
+        pose = initial_pose.copy()
+        last = pose.copy()
+        max_outer = self.max_outer_iterations
+        inner_its = np.zeros(max_outer, np.int32)
+        costs = np.full(max_outer, np.nan)
+        outer_it = 0
+        final_cost = np.nan
+        for outer_it in range(max_outer):
+            # The copy below is queued on the current stream and reads the
+            # pinned buffer after this call returns. The next iteration's
+            # match_and_pack overwrites that buffer only after the LM below
+            # has read its result on the host (lm.solve reads `all done`
+            # every iteration, and the final read copies t, q, the count
+            # and the cost), which waits for every earlier op on the
+            # stream, the copy included. Nothing else orders the two.
+            native.match_and_pack(
+                pts, pose.rotation, pose.translation, self.means, self.sqrt_infos,
+                self.search_radius, k, host.shape[1], out=host_np,
+                num_threads=self.num_threads,
+            )
+            if dev is not host:
+                dev.copy_(host, non_blocking=True)
+            x0 = torch.as_tensor(
+                np.concatenate([pose.translation, pose.quaternion()]),
+                dtype=torch.float32, device=self.device,
+            )
+            t, q, iters, cost = _packed_lm_solve(
+                x0[:3], x0[3:], packed, self.loss, self.options, self.planar
+            )
+            out = torch.cat([t, q, iters.reshape(1).to(t.dtype), cost.reshape(1)])
+            out = out.cpu().numpy().astype(np.float64)  # the one host read
+            qn = out[3:7] / np.linalg.norm(out[3:7])
+            pose = Pose(np_quat_to_rotmat(qn), out[:3].copy())
+            inner_its[outer_it] = int(out[7])
+            costs[outer_it] = final_cost = float(out[8])
+
+            diff = pose.inverse() * last
+            dq = np_rotmat_to_quat(diff.rotation)
+            if (
+                np.linalg.norm(diff.translation) < self.outer_tolerance
+                and np.linalg.norm(dq[1:]) < self.outer_tolerance
+            ):
+                break
+            last = pose.copy()
+
+        return FusedRegistrationResult(
+            pose=pose,
+            outer_iterations=outer_it + 1,
+            final_cost=final_cost,
+            inner_iterations=inner_its,
+            costs=costs,
+        )

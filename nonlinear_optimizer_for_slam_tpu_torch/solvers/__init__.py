@@ -2,6 +2,7 @@ from . import (
     autodiff,
     batched,
     block_tridiag,
+    fixed_lag,
     graph_init,
     linear,
     lm,
@@ -20,6 +21,7 @@ from .batched import (
     solve_reprojection_batch,
     solve_reprojection_batch_async,
 )
+from .fixed_lag import FixedLagSmoother
 from .lm import IterationRecord, Summary
 from .minimizers import (
     MahalanobisDistanceMinimizer,
@@ -39,6 +41,7 @@ __all__ = [
     "autodiff",
     "batched",
     "block_tridiag",
+    "fixed_lag",
     "graph_init",
     "linear",
     "lm",
@@ -54,6 +57,7 @@ __all__ = [
     "solve_point_to_plane_batch_async",
     "solve_reprojection_batch",
     "solve_reprojection_batch_async",
+    "FixedLagSmoother",
     "IterationRecord",
     "MahalanobisDistanceMinimizer",
     "MahalanobisDistanceMinimizer3DOF",

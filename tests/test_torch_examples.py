@@ -1,0 +1,126 @@
+"""The port's examples (``nonlinear_optimizer_for_slam_tpu_torch/examples/``)
+on the CPU (``--device cpu``).
+
+- ``g2o_solve`` in its no-input demo mode, as
+  tests/test_examples_smoke.py::test_g2o_solve_demo runs the JAX one: it
+  solves with solver="auto", reports the pick and writes the solved file.
+- ``pose_graph_slam`` and ``hand_eye_calibration`` print, line for line,
+  what the JAX examples print (both solve in float64 here: the port by
+  default, the JAX package under the tests' x64 mode).
+- Importing ``native``, ``solvers.fixed_lag`` and every example module
+  leaves no ``jax`` module loaded (in a fresh interpreter).
+
+The heavier examples driven as libraries have files of their own:
+tests/test_torch_incremental_mapping.py, tests/test_torch_multi_robot.py
+and tests/test_torch_full_slam.py.
+"""
+
+import contextlib
+import importlib.util
+import io
+import os
+import subprocess
+import sys
+import tempfile
+
+import pytest
+import torch
+
+from nonlinear_optimizer_for_slam_tpu_torch.examples import (
+    g2o_solve,
+    hand_eye_calibration,
+    pose_graph_slam,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLES = (
+    "fixed_lag_slam", "full_slam", "g2o_solve", "hand_eye_calibration",
+    "incremental_mapping", "multi_robot_map_merge", "ndt_registration",
+    "pose_graph_slam", "serving_batch",
+)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the solves are many tiny ops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _jax_example(name: str):
+    """The JAX package's example module, loaded from examples/ (it runs
+    on the tests' CPU JAX). An example that points JAX's compilation
+    cache somewhere when imported has that setting undone."""
+    import jax
+
+    cache_dir = jax.config.jax_compilation_cache_dir
+    spec = importlib.util.spec_from_file_location(
+        f"jax_example_{name}", os.path.join(REPO, "examples", f"{name}.py")
+    )
+    module = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+    return module
+
+
+def _printed(fn, *args, **kwargs) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(*args, **kwargs)
+    return out.getvalue()
+
+
+def test_g2o_solve_demo(tmp_path, monkeypatch):
+    """No-input mode: writes the 64-pose loop demo (into this test's own
+    temporary directory), solves it with solver="auto", reports the pick
+    and writes the solved graph."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    out = _printed(g2o_solve.main, [
+        "-o", str(tmp_path / "solved.g2o"), "--max-iterations", "60", "--device", "cpu",
+    ])
+    assert "solved in" in out
+    assert "solver=" in out  # auto reports its pick
+    assert "converged=True" in out
+    assert (tmp_path / "g2o_demo.g2o").exists()
+    assert (tmp_path / "solved.g2o").exists()
+
+
+@pytest.mark.parametrize(
+    "port_module, name",
+    [(pose_graph_slam, "pose_graph_slam"), (hand_eye_calibration, "hand_eye_calibration")],
+    ids=["pose_graph_slam", "hand_eye_calibration"],
+)
+def test_example_prints_what_the_jax_example_prints(port_module, name):
+    theirs = _printed(_jax_example(name).main).splitlines()
+    mine = _printed(port_module.main, device="cpu").splitlines()
+    assert len(theirs) >= 3
+    assert mine == theirs
+
+
+def test_the_port_modules_import_no_jax():
+    """In a fresh interpreter, the binding, the smoother and every example
+    import without loading jax or any module of the JAX package."""
+    mods = ["nonlinear_optimizer_for_slam_tpu_torch.native",
+            "nonlinear_optimizer_for_slam_tpu_torch.solvers.fixed_lag",
+            "nonlinear_optimizer_for_slam_tpu_torch.examples"]
+    mods += [f"nonlinear_optimizer_for_slam_tpu_torch.examples.{e}" for e in EXAMPLES]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m.startswith('jaxlib') or m == 'nonlinear_optimizer_for_slam_tpu'\n"
+        "             or m.startswith('nonlinear_optimizer_for_slam_tpu.'))\n"
+        "print(len(bad), bad[:5])\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "0 []", proc.stdout
+    assert sorted(e for e in os.listdir(os.path.join(
+        REPO, "nonlinear_optimizer_for_slam_tpu_torch", "examples"))
+        if e.endswith(".py") and e != "__init__.py") == sorted(f"{e}.py" for e in EXAMPLES)
