@@ -58,7 +58,15 @@ one launch per LM evaluation) beside ``register_ndt`` and the
 ``NdtRegistrar``, ``examples/full_slam.py`` at its defaults with its
 fixed-lag smoother's updates replayed on the CPU port, ``fixed_lag_slam``
 blocking and streaming, and every other example as a subprocess on the
-card.
+card (``bal_solve`` among them). Last, slice 13, in plain PyTorch ops with
+no port kernel: ``BundleAdjuster`` on benchmarks/run_all.py's rigs (8
+cameras and 300 landmarks in float32 and float64, float64 against the CPU
+port; 100 cameras and 10,000 landmarks grouped and flat), ``solve_bal`` on
+its synthetic BAL shapes from 49-7776 to the final/13682 shape (dense,
+chunked and iterative Schur; float64 against the CPU port), and the
+pose-landmark optimizers on its 3-D world (dense and sparse against each
+other and the CPU port), city (sparse, with sparse covariances) and 2-D
+world; the two-rank ``sharded`` phase also runs ``BundleAdjuster(mesh=)``.
 Every phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code.
 The line before the last is the ``kernels`` summary, the last line
@@ -1389,6 +1397,11 @@ def main() -> int:
     slice12_launches.update(_fixed_lag(dev, name, smi))
     slice12_launches.update(_examples(dev, name, smi))
     emit("slice12_launches", launches=slice12_launches, device=name, nvidia_smi=smi)
+    # ---- slice 13: bundle adjustment, BAL and the pose-landmark
+    # optimizers (no port kernel on their path) --------------------------
+    _bundle_adjustment(dev, name, smi)
+    _bal(dev, name, smi)
+    _pose_landmark(dev, name, smi)
 
     kernels = []
     for kernel in KERNEL_SHAPE:
@@ -2526,13 +2539,15 @@ SHARDED_WORLD = 2
 # A sharded float32 solve against the unsharded one: the same kernel on
 # half the rows a rank, the two partials added after, so the sums round
 # otherwise; the counts are equal and the poses within 1e-5 (PR 11's runs
-# measured at most 3.7e-7, maha6's minimizer). In float64 (the pose
+# measured at most 3.7e-7, maha6's minimizer); so for the bundle adjuster
+# in float32 (landmarks sharded, the reduced camera system summed). In
+# float64 (the pose
 # graph): CG's cost within rtol 1e-9 (the JAX test's) and poses 1e-6,
 # sparse (whose fronts each rank factors alone or in smaller batches) cost
 # rtol 1e-10 and poses 1e-9.
 SHARDED_POSE_TOL = {"maha6": 1e-5, "maha3c": 1e-5, "reproj": 1e-5, "p2p": 1e-5,
                     "registrar_maha": 1e-5, "registrar_planar": 1e-5, "registrar_p2p": 1e-5,
-                    "cg": 1e-6, "sparse_m3500": 1e-9}
+                    "cg": 1e-6, "sparse_m3500": 1e-9, "bundle_adjustment": 1e-5}
 SHARDED_COST_RTOL = {"cg": 1e-9, "sparse_m3500": 1e-10}
 
 
@@ -2652,7 +2667,7 @@ def _hand_eye_problem():
 
 def _sharded_inputs(fx: dict, work: str) -> dict:
     """The arrays every rank loads (``inputs.npz`` in ``work``): the
-    smoke's correspondences, scan, maps and the M3500 start."""
+    smoke's correspondences, scan, maps, the M3500 start and the BA rig."""
     arrays = {}
     for key in ("matched", "planar_matched", "reproj_data", "p2p_matched"):
         for field, value in zip(type(fx[key])._fields, fx[key]):
@@ -2666,6 +2681,11 @@ def _sharded_inputs(fx: dict, work: str) -> dict:
     arrays["local"] = fx["local"]
     arrays["local_planar"] = fx["local_planar"]
     arrays["p2p_start"] = fx["p2p_start"].matrix()
+    data, noisy, noisy_lms, _ = _ba_rigs()[0]
+    for field, value in zip(data._fields, data):
+        arrays[f"ba/{field}"] = value
+    arrays["ba/noisy_poses"] = np.stack([p.matrix() for p in noisy])
+    arrays["ba/noisy_landmarks"] = noisy_lms
     ids = sorted(fx["m3500_initial"])
     arrays["m3500/ids"] = np.array(ids)
     arrays["m3500/xyt"] = np.stack([fx["m3500_initial"][k] for k in ids])
@@ -2774,8 +2794,25 @@ def _sharded_calls(dev, arrays: dict, m3500_path: str, mesh, only=None) -> dict:
         summary, sw = opt.solve(opts.replace(max_iterations=500))
         return graph_state(opt, summary, sw, _pg2d_state(opt))
 
+    def bundle_adjustment():
+        from nonlinear_optimizer_for_slam_tpu_torch.solvers.bundle_adjustment import (
+            BAData,
+            BundleAdjuster,
+        )
+
+        data = BAData(*(arrays[f"ba/{f}"] for f in BAData._fields))
+        noisy = [port.Pose.from_matrix(T) for T in arrays["ba/noisy_poses"]]
+        # the flat layout, the sharded path's, on both sides
+        ba = BundleAdjuster(dtype=torch.float32, layout="flat", device=dev, mesh=mesh)
+        poses, lms, s = ba.solve(opts.replace(max_iterations=BA_SMALL_CAP), data,
+                                 reprojection.CameraIntrinsics.create(*BA_INTRINSICS), noisy,
+                                 arrays["ba/noisy_landmarks"], fixed_cameras=(0, 1))
+        return dict(poses=np.stack([p.matrix() for p in poses]), landmarks=lms,
+                    iterations=int(s.iterations), final_cost=float(s.final_cost)), 0
+
     run("cg", None, cg, timed=False)
     run("sparse_m3500", None, sparse_m3500, timed=False)
+    run("bundle_adjustment", None, bundle_adjustment)
     return out
 
 
@@ -2834,9 +2871,10 @@ def _sharded(dev, name: str, smi: str, fx: dict) -> None:
     padded rows (9,728 a rank), the 3-DoF, PnP and p2p minimizers, the
     NdtRegistrar (maha, planar and p2p) on the full scan, CG on the 80-pose fixture
     and sparse on M3500, each against the same unsharded call in this
-    process; and a one-rank NCCL group's maha6 solve, bitwise the unsharded
-    one. The kernels were built before the spawn, so the ranks only load
-    them."""
+    process; the bundle adjuster (float32, flat) on run_all.py's
+    300-landmark rig; and a one-rank NCCL group's maha6 solve, bitwise the
+    unsharded one. The kernels were built before the spawn, so the ranks
+    only load them."""
     import shutil
 
     import torch.multiprocessing as mp
@@ -3336,6 +3374,7 @@ EXAMPLES = {
     "serving_batch": ([], "batched registration:"),
     "incremental_mapping": ([], "scan-to-map   error:"),
     "multi_robot_map_merge": ([], "planted false-rendezvous switch:"),
+    "bal_solve": ([], "final cost"),
 }
 
 
@@ -3388,6 +3427,509 @@ def _examples(dev, name: str, smi: str) -> dict:
     emit("examples", examples=report, concurrent=len(procs),
          serving_batch_launches=launches, device=name, nvidia_smi=smi)
     return {"serving_batch_" + k: v for k, v in launches.items()}
+
+
+# ---- slice 13: bundle adjustment, BAL and the pose-landmark optimizers ------
+
+# benchmarks/run_all.py's BA rigs: pinhole intrinsics, the large rig's
+# cameras and landmarks, LM caps
+BA_INTRINSICS = (525.0, 525.0, 320.0, 240.0, 640, 480)
+BA_LARGE_RIG = (100, 10000)
+BA_SMALL_CAP, BA_LARGE_CAP = 60, 40
+# run_all.py's landmark worlds: 3-D (poses, landmarks, observations a
+# pose), the city (poses, landmarks), 2-D (poses, landmarks, observations
+# a pose)
+LANDMARK_3D, LANDMARK_CITY, LANDMARK_2D = (200, 2000, 25), (5000, 15000), (1000, 300, 8)
+# run_all.py's _plateau_opts: the LM stops on a relative best-cost plateau
+# (BA and BAL: rtol 1e-6; the pose-landmark worlds: 1e-5, the city 1e-6)
+BA_RTOL, LANDMARK_RTOL = 1e-6, 1e-5
+# the card against the CPU port in float64: BA's 300-landmark rig (poses
+# and landmarks), the BAL 49-7776 final cost, the pose-landmark 3-D world
+# (poses and landmarks; also sparse against dense on the card)
+BA_CPU_TOL = 1e-9
+BAL_CPU_RTOL = 1e-9
+LANDMARK_TOL = 1e-8
+# BAL shapes: (cameras, points, seed, landmark_chunk, schur, timed runs);
+# run_all.py's, 4 observations a point, 30 LM iterations at most
+BAL_SHAPES = [
+    (49, 7776, 49, None, "dense", 3),
+    (128, 20000, 128, 4096, "dense", 3),
+    (1200, 40000, 1200, None, "iterative", 1),
+    (13682, 100000, 13682, None, "iterative", 1),
+]
+BAL_CAP, BAL_PCG_ITERATIONS = 30, 60
+
+
+def _plateau(cap: int, rtol: float):
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.core.options import ConvergenceHandle
+
+    return port.Options().replace(
+        max_iterations=cap, convergence_handle=ConvergenceHandle(relative_function_tolerance=rtol)
+    )
+
+
+def _ba_rigs():
+    """benchmarks/run_all.py's two BA rigs, drawn from its rng (seed 0) in
+    its order: the 8-camera arc over 300 landmarks, then 100 cameras
+    orbiting 10,000 landmarks with 35 % of the visible ones observed.
+    Each rig: (BAData of numpy arrays, noisy poses, noisy landmarks, true
+    solver poses)."""
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers.bundle_adjustment import BAData
+
+    rng = np.random.default_rng(0)
+
+    def observe(poses, lms, keep=None):
+        ci, li, px = [], [], []
+        for c, pose in enumerate(poses):
+            pc = pose.inverse().apply(lms)
+            uv = np.stack([525 * pc[:, 0] / pc[:, 2] + 320, 525 * pc[:, 1] / pc[:, 2] + 240], 1)
+            vis = ((pc[:, 2] > 0.5) & (uv[:, 0] >= 0) & (uv[:, 0] < 640) & (uv[:, 1] >= 0)
+                   & (uv[:, 1] < 480))
+            if keep is not None:
+                vis &= rng.uniform(size=len(lms)) < keep
+            idx = np.nonzero(vis)[0]
+            ci.extend([c] * len(idx))
+            li.extend(idx.tolist())
+            px.extend(uv[idx].tolist())
+        return BAData(np.array(ci, np.int64), np.array(li, np.int64), np.array(px),
+                      np.ones(len(ci)))
+
+    def perturb(truth, angle, step):
+        noisy = [truth[0].copy(), truth[1].copy()]
+        for p in truth[2:]:
+            noisy.append(p * port.Pose.from_axis_angle(angle * rng.normal(), rng.normal(size=3),
+                                                       step * rng.normal(size=3)))
+        return noisy
+
+    C, M = 8, 300
+    lms = np.stack([rng.uniform(-2, 2, M), rng.uniform(-1.5, 1.5, M), rng.uniform(4, 8, M)], 1)
+    poses = [port.Pose.from_axis_angle(0.05 * (i - C / 2), [0, 1.0, 0],
+                                       [0.4 * i - 1.6, 0.05 * i, 0.0]) for i in range(C)]
+    data = observe(poses, lms)
+    truth = [p.inverse() for p in poses]
+    small = (data, perturb(truth, 0.05, 0.05), lms + 0.05 * rng.normal(size=lms.shape), truth)
+
+    C2, M2 = BA_LARGE_RIG
+    lms2 = np.stack([rng.uniform(-2, 2, M2), rng.uniform(-2, 2, M2), rng.uniform(-1.5, 1.5, M2)], 1)
+    world_from_cam = []
+    for i in range(C2):
+        ang = 2 * np.pi * i / C2
+        center = np.array([8.0 * np.cos(ang), 8.0 * np.sin(ang), 0.3 * np.sin(3 * ang)])
+        z = -center / np.linalg.norm(center)
+        x = np.cross(np.array([0.0, 0.0, 1.0]), z)
+        x /= np.linalg.norm(x)
+        world_from_cam.append(port.Pose(np.stack([x, np.cross(z, x), z], 1), center))
+    data2 = observe(world_from_cam, lms2, keep=0.35)
+    truth2 = [p.inverse() for p in world_from_cam]
+    large = (data2, perturb(truth2, 0.01, 0.03), lms2 + 0.03 * rng.normal(size=lms2.shape), truth2)
+    return small, large
+
+
+def _timed_solves(solve, runs: int):
+    """``solve()`` once as a warm-up, then ``runs`` times: (the last
+    result, walls ms, peak device GB of the first timed solve above what
+    was allocated before it)."""
+    import torch
+
+    out = solve()
+    walls, peak = [], None
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = solve()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if peak is None:
+            peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+    return out, walls, peak
+
+
+def _ba_case(rig, dtype, dev, profile=True, **kw) -> tuple:
+    """One BA configuration: timed solves (median of 3), its counts, the
+    largest camera translation error against the truth, peak memory, and
+    one solve under torch.profiler (device kernels per LM iteration, idle
+    share). Returns (row, (poses, landmarks, summary))."""
+    from nonlinear_optimizer_for_slam_tpu_torch.ops.reprojection import CameraIntrinsics
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers.bundle_adjustment import BundleAdjuster
+
+    data, noisy, noisy_lms, truth = rig
+    intr = CameraIntrinsics.create(*BA_INTRINSICS)
+    cap = BA_SMALL_CAP if len(noisy) == 8 else BA_LARGE_CAP
+    ba = BundleAdjuster(dtype=dtype, device=dev, **kw)
+    solve = lambda: ba.solve(_plateau(cap, BA_RTOL), data, intr, noisy, noisy_lms,
+                             fixed_cameras=(0, 1))
+    (poses, lms, summary), walls, peak = _timed_solves(solve, 3)
+    n_eval = _evaluations([summary])
+    wall = statistics.median(walls)
+    rec = summary.records.cost.cpu().numpy()
+    row = dict(
+        dtype=str(dtype)[6:], ms_per_solve_median=wall, walls_ms=walls,
+        lm_iterations=int(summary.iterations), lm_evaluations=n_eval,
+        ms_per_lm_iteration=wall / n_eval, converged=bool(summary.converged),
+        initial_cost=float(rec[0]), final_cost=float(summary.final_cost),
+        cam_err=max(float(np.linalg.norm(e.translation - t.translation))
+                    for e, t in zip(poses, truth)),
+        peak_memory_gb=peak,
+    )
+    if profile:
+        prof = _profile(solve)
+        row.update(device_kernels_per_lm_iteration=prof["device_kernels"] / n_eval,
+                   device_busy_ms=prof["device_busy_ms"],
+                   device_idle_share=prof["device_idle_share"], profiled_wall_ms=prof["wall_ms"],
+                   top_device=prof["top_device"][:5])
+    if not (np.isfinite(row["final_cost"]) and row["final_cost"] <= row["initial_cost"]):
+        raise AssertionError(f"bundle_adjustment: {row}")
+    return row, (poses, lms, summary)
+
+
+def _bundle_adjustment(dev, name: str, smi: str) -> None:
+    """``BundleAdjuster`` on run_all.py's rigs: the 8-camera, 300-landmark
+    rig in float32 and float64 (float64 held against the CPU port: counts
+    equal, poses and landmarks within BA_CPU_TOL), and the 100-camera,
+    10,000-landmark rig in float32, grouped and flat with landmark_chunk
+    1024. No port kernel runs."""
+    import torch
+
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.ops.reprojection import CameraIntrinsics
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers.bundle_adjustment import BundleAdjuster
+
+    t0 = time.perf_counter()
+    small, large = _ba_rigs()
+    rigs_s = time.perf_counter() - t0
+    ck.reset_launches()
+    rows = {}
+    rows["small_float32"], _ = _ba_case(small, torch.float32, dev)
+    rows["small_float64"], (poses, lms, summary) = _ba_case(small, torch.float64, dev)
+    data, noisy, noisy_lms, _ = small
+    cpu = BundleAdjuster(dtype=torch.float64, device="cpu").solve(
+        _plateau(BA_SMALL_CAP, BA_RTOL), data, CameraIntrinsics.create(*BA_INTRINSICS), noisy,
+        noisy_lms, fixed_cameras=(0, 1))
+    pose_diff = max(float(np.abs(a.matrix() - b.matrix()).max()) for a, b in zip(poses, cpu[0]))
+    lm_diff = float(np.abs(lms - cpu[1]).max())
+    cpu_counts_equal = int(summary.iterations) == int(cpu[2].iterations)
+    rows["large_grouped_float32"], _ = _ba_case(large, torch.float32, dev, layout="grouped")
+    rows["large_flat_chunk1024_float32"], _ = _ba_case(large, torch.float32, dev, layout="flat",
+                                                       landmark_chunk=1024)
+    _no_port_kernels("bundle_adjustment")
+    if not (cpu_counts_equal and pose_diff <= BA_CPU_TOL and lm_diff <= BA_CPU_TOL):
+        raise AssertionError(f"bundle_adjustment: float64 card vs CPU counts "
+                             f"{int(summary.iterations)}/{int(cpu[2].iterations)}, poses "
+                             f"{pose_diff}, landmarks {lm_diff}")
+    emit("bundle_adjustment", small_rig=dict(cameras=8, landmarks=300,
+                                             observations=small[0].num_observations),
+         large_rig=dict(cameras=BA_LARGE_RIG[0], landmarks=BA_LARGE_RIG[1],
+                        observations=large[0].num_observations),
+         rigs_build_s=rigs_s, fixed_cameras=[0, 1], plateau_rtol=BA_RTOL,
+         caps={"small": BA_SMALL_CAP, "large": BA_LARGE_CAP}, cases=rows,
+         float64_card_vs_cpu=dict(lm_iterations_equal=True, pose_max_diff=pose_diff,
+                                  landmark_max_diff=lm_diff, tol=BA_CPU_TOL),
+         port_kernel_launches=0, device=name, nvidia_smi=smi)
+
+
+def _bal(dev, name: str, smi: str) -> None:
+    """``solve_bal`` on run_all.py's synthetic BAL shapes (BAL_SHAPES): the
+    49-7776 problem dense in float32 and float64 (float64 against the CPU
+    port's final cost, rtol BAL_CPU_RTOL), 128 x 20,000 chunked, and the
+    1,200 x 40,000 and 13,682 x 100,000 (final/13682) problems by the
+    iterative Schur path, float32. The final cost is at most the initial
+    cost on every shape. No port kernel runs."""
+    import torch
+
+    from nonlinear_optimizer_for_slam_tpu_torch.io import bal as bal_io
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.solvers import bal as bal_solver
+
+    ck.reset_launches()
+    rows = {}
+    opts = _plateau(BAL_CAP, BA_RTOL)
+    for C, P, seed, chunk, schur, runs in BAL_SHAPES:
+        t0 = time.perf_counter()
+        problem, _ = bal_io.synthetic_bal_problem(C, P, 4, seed=seed)
+        build_s = time.perf_counter() - t0
+        for dtype in ((torch.float32, torch.float64) if C == 49 else (torch.float32,)):
+            solve = lambda: bal_solver.solve_bal(
+                problem, opts, dtype=dtype, landmark_chunk=chunk, schur=schur,
+                schur_iterations=BAL_PCG_ITERATIONS, device=dev)
+            (solved, summary), walls, peak = _timed_solves(solve, runs)
+            initial = bal_solver.bal_cost(problem, dtype=dtype, device=dev)
+            final = bal_solver.bal_cost(solved, dtype=dtype, device=dev)
+            n_eval = _evaluations([summary])
+            wall = statistics.median(walls)
+            row = dict(cameras=C, points=P, observations=problem.num_observations,
+                       schur=schur, landmark_chunk=chunk, dtype=str(dtype)[6:],
+                       ms_per_solve_median=wall, walls_ms=walls,
+                       lm_iterations=int(summary.iterations), lm_evaluations=n_eval,
+                       ms_per_lm_iteration=wall / n_eval, converged=bool(summary.converged),
+                       initial_cost=initial, final_cost=final,
+                       summary_final_cost=float(summary.final_cost), peak_memory_gb=peak,
+                       problem_build_s=build_s)
+            if not (np.isfinite(final) and final <= initial):
+                raise AssertionError(f"bal: {row}")
+            if C == 49 and dtype == torch.float64:
+                cpu, cpu_summary = bal_solver.solve_bal(problem, opts, device="cpu")
+                cpu_final = bal_solver.bal_cost(cpu, device="cpu")
+                rel = abs(final - cpu_final) / cpu_final
+                row.update(cpu_final_cost=cpu_final, cpu_lm_iterations=int(cpu_summary.iterations),
+                           final_cost_rel_diff_vs_cpu=rel)
+                if rel > BAL_CPU_RTOL:
+                    raise AssertionError(f"bal: float64 card {final} vs CPU {cpu_final}")
+            rows[f"{C}x{P}_{schur}_{row['dtype']}"] = row
+    _no_port_kernels("bal")
+    emit("bal", cost_convention="0.5 sum |r|^2 (Ceres)", plateau_rtol=BA_RTOL, cap=BAL_CAP,
+         pcg_iterations=BAL_PCG_ITERATIONS, cases=rows, port_kernel_launches=0,
+         device=name, nvidia_smi=smi)
+
+
+def _rotz(th):
+    c, s = np.cos(th), np.sin(th)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def _landmark_worlds():
+    """benchmarks/run_all.py's landmark worlds (bench_slam_extras): the 3-D
+    world (200 poses on a circle, 2,000 landmarks, 25 observations a pose)
+    and the 2-D world (1,000 poses, 300 landmarks, 8 observations a pose)
+    from its rng (seed 12, drawn in its order), and the city (5,000
+    poses, 15,000 landmarks, 75,000 observations; seed 1)."""
+    from nonlinear_optimizer_for_slam_tpu_torch.core.pose import Pose
+
+    rng = np.random.default_rng(12)
+    P3, M3, K3 = LANDMARK_3D
+    gt3 = [Pose(_rotz(th), np.array([8 * np.cos(th), 8 * np.sin(th), 0.0]))
+           for th in np.linspace(0, 2 * np.pi, P3, endpoint=False)]
+    lms3 = rng.uniform(-4.0, 4.0, size=(M3, 3))
+    obs3 = []
+    for i, pose in enumerate(gt3):
+        for j in rng.choice(M3, K3, replace=False):
+            z = pose.rotation.T @ (lms3[j] - pose.translation)
+            obs3.append((i, int(j), z + rng.normal(0, 0.01, 3)))
+
+    rng5 = np.random.default_rng(1)
+    P5, M5 = LANDMARK_CITY
+    gt5 = np.cumsum(0.3 * rng5.normal(size=(P5, 3)), axis=0)
+    own5 = rng5.integers(0, P5, M5)
+    lm5 = gt5[own5] + rng5.uniform(-2, 2, (M5, 3))
+    noisy5 = gt5 + np.where(np.arange(P5)[:, None] > 0, 0.05 * rng5.normal(size=(P5, 3)), 0.0)
+    lm5_init = lm5 + 0.1 * rng5.normal(size=(M5, 3))
+    obs5 = [(i, j, lm5[j] - gt5[i] + 0.01 * rng5.normal(size=3))
+            for j in range(M5) for i in range(max(0, own5[j] - 2), min(P5, own5[j] + 3))]
+
+    P2, M2, K2 = LANDMARK_2D
+    th2 = np.cumsum(rng.normal(0.006, 0.02, P2))
+    xy2 = np.cumsum(0.3 * np.stack([np.cos(th2), np.sin(th2)], 1), axis=0)
+    gt2 = np.concatenate([xy2, th2[:, None]], axis=1)
+    lm2 = rng.uniform(xy2.min(0) - 2, xy2.max(0) + 2, size=(M2, 2))
+    obs2 = []
+    for i in range(P2):
+        d = np.linalg.norm(lm2 - xy2[i], axis=1)
+        for j in np.argsort(d)[:K2]:
+            c, s = np.cos(th2[i]), np.sin(th2[i])
+            dp = lm2[j] - xy2[i]
+            obs2.append((i, int(j), np.array([c * dp[0] + s * dp[1], -s * dp[0] + c * dp[1]])
+                         + rng.normal(0, 0.01, 2)))
+    return ((gt3, lms3, obs3), (gt5, noisy5, lm5_init, obs5), (gt2, lm2, obs2))
+
+
+def _landmark_3d(world, dev, **kw):
+    """The 3-D world's optimizer (run_all.py's _lm3_solve at its first
+    repetition: start noise from seed 101)."""
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.core.pose import Pose
+
+    gt, lms, obs = world
+    opt = port.PoseLandmarkOptimizer(device=dev, **kw)
+    r2 = np.random.default_rng(101)
+    for i, p in enumerate(gt):
+        opt.set_pose(i, Pose(p.rotation, p.translation + (r2.normal(0, 0.1, 3) if i else 0.0)))
+    opt.set_pose_constant(0)
+    for j in sorted({j for (_, j, _) in obs}):
+        opt.set_landmark(j, lms[j] + r2.normal(0, 0.2, 3))
+    for i in range(len(gt) - 1):
+        opt.set_constraint(i, i + 1, gt[i].inverse() * gt[i + 1])
+    for (i, j, z) in obs:
+        opt.set_observation(i, j, z, sqrt_info=10.0)
+    return opt
+
+
+def _landmark_2d(world, dev, **kw):
+    """The 2-D world's optimizer (run_all.py's _lm2 at its first
+    repetition: start noise from seed 201)."""
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+
+    gt, lms, obs = world
+    opt = port.PoseLandmark2DOptimizer(device=dev, **kw)
+    r2 = np.random.default_rng(201)
+    for i in range(len(gt)):
+        opt.set_pose(i, gt[i] + (np.concatenate([r2.normal(0, 0.1, 2), [r2.normal(0, 0.03)]])
+                                 if i else 0.0))
+    opt.set_pose_constant(0)
+    for j in sorted({j for (_, j, _) in obs}):
+        opt.set_landmark(j, lms[j] + r2.normal(0, 0.3, 2))
+    for i in range(len(gt) - 1):
+        c, s = np.cos(gt[i, 2]), np.sin(gt[i, 2])
+        dp = gt[i + 1, :2] - gt[i, :2]
+        dth = (gt[i + 1, 2] - gt[i, 2] + np.pi) % (2 * np.pi) - np.pi
+        opt.set_constraint(i, i + 1, [c * dp[0] + s * dp[1], -s * dp[0] + c * dp[1], dth])
+    for (i, j, z) in obs:
+        opt.set_observation(i, j, z, sqrt_info=10.0)
+    return opt
+
+
+def _landmark_state(opt):
+    ids = opt.pose_indices()
+    first = opt.get_pose(ids[0])
+    poses = np.stack([opt.get_pose(i).matrix() if hasattr(first, "matrix") else opt.get_pose(i)
+                      for i in ids])
+    return poses, np.stack([opt.get_landmark(j) for j in opt.landmark_indices()])
+
+
+def _landmark_case(opt, options, t_err, runs=3) -> dict:
+    """Solves of ``opt`` from its registered start: the first (which
+    builds a sparse plan) timed alone, then ``runs`` more from the same
+    start (median); the counts, the largest translation error against the
+    truth, peak memory, and one solve under torch.profiler (in float64,
+    bitwise the timed one)."""
+    import torch
+
+    start_poses = {i: opt.get_pose(i) for i in opt.pose_indices()}
+    start_lms = {j: opt.get_landmark(j) for j in opt.landmark_indices()}
+
+    def reset():
+        for i, p in start_poses.items():
+            opt.set_pose(i, p)
+        for j, l in start_lms.items():
+            opt.set_landmark(j, l)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary, _ = opt.solve(options)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    walls, peak = [], None
+    for _ in range(runs):
+        reset()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary, _ = opt.solve(options)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if peak is None:
+            peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+    n_eval = _evaluations([summary])
+    wall = statistics.median(walls) if walls else first
+    row = dict(first_solve_ms=first, ms_per_solve_median=wall, walls_ms=walls,
+               lm_iterations=int(summary.iterations), lm_evaluations=n_eval,
+               ms_per_lm_iteration=wall / n_eval, converged=bool(summary.converged),
+               final_cost=float(summary.final_cost), max_t_err=t_err(opt), peak_memory_gb=peak)
+    if runs:
+        solved = _landmark_state(opt)
+        prof = _profile(lambda: (reset(), opt.solve(options)), warm=False)
+        row.update(device_kernels_per_lm_iteration=prof["device_kernels"] / n_eval,
+                   device_idle_share=prof["device_idle_share"], top_device=prof["top_device"][:3])
+        if opt.dtype == torch.float64 and any(
+            not np.array_equal(a, b) for a, b in zip(solved, _landmark_state(opt))
+        ):
+            raise AssertionError("pose_landmark: two float64 solves from one start differ")
+    if not np.isfinite(row["final_cost"]):
+        raise AssertionError(f"pose_landmark: {row}")
+    return row
+
+
+def _pose_landmark(dev, name: str, smi: str) -> None:
+    """The pose-landmark optimizers on run_all.py's worlds: the 3-D world
+    (200 poses, 2,000 landmarks) by dense and sparse in float64 (sparse
+    against dense on the card and against the CPU port: counts equal,
+    poses and landmarks within LANDMARK_TOL), the city (5,000 poses,
+    15,000 landmarks) by sparse in float32 with sparse pose and landmark
+    covariances (the dense joint inverse, dimension 75,000, cannot run),
+    and the 2-D world (1,000 poses, 300 landmarks) by dense and sparse. No
+    port kernel runs."""
+    import torch
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.core.pose import Pose
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    world3, city, world2 = _landmark_worlds()
+    worlds_s = time.perf_counter() - t0
+    ck.reset_launches()
+    gt3 = world3[0]
+    err3 = lambda o: max(float(np.linalg.norm(o.get_pose(i).translation - gt3[i].translation))
+                         for i in range(len(gt3)))
+    opts = _plateau(60, LANDMARK_RTOL)
+    rows, states = {}, {}
+    for solver in ("dense", "sparse"):
+        opt = _landmark_3d(world3, dev, pose_solver=solver)
+        rows[f"3d_{solver}_float64"] = _landmark_case(opt, opts, err3)
+        states[solver] = _landmark_state(opt)
+    cpu = _landmark_3d(world3, "cpu", pose_solver="sparse")
+    cpu_summary, _ = cpu.solve(opts)
+    checks = {}
+    for other, state, its in (("dense", states["dense"], rows["3d_dense_float64"]["lm_iterations"]),
+                              ("cpu", _landmark_state(cpu), int(cpu_summary.iterations))):
+        diffs = [float(np.abs(a - b).max()) for a, b in zip(states["sparse"], state)]
+        checks[f"sparse_vs_{other}"] = dict(
+            lm_iterations_equal=its == rows["3d_sparse_float64"]["lm_iterations"],
+            pose_max_diff=diffs[0], landmark_max_diff=diffs[1])
+        if not (checks[f"sparse_vs_{other}"]["lm_iterations_equal"]
+                and max(diffs) <= LANDMARK_TOL):
+            raise AssertionError(f"pose_landmark: 3-D sparse vs {other}: {checks}")
+
+    gt5, noisy5, lm5_init, obs5 = city
+    t0 = time.perf_counter()
+    big = port.PoseLandmarkOptimizer(switch_penalty=0.03, pose_solver="sparse",
+                                     dtype=torch.float32, device=dev)
+    for i in range(len(gt5)):
+        big.set_pose(i, Pose(np.eye(3), noisy5[i]))
+    big.set_pose_constant(0)
+    for j in range(len(lm5_init)):
+        big.set_landmark(j, lm5_init[j])
+    for i in range(len(gt5) - 1):
+        big.set_constraint(i, i + 1, Pose(np.eye(3), gt5[i + 1] - gt5[i]))
+    for (i, j, z) in obs5:
+        big.set_observation(i, j, z, sqrt_info=10.0)
+    registry_s = time.perf_counter() - t0
+    err5 = lambda o: max(float(np.linalg.norm(o.get_pose(i).translation - gt5[i]))
+                         for i in range(0, len(gt5), 13))
+    rows["city_sparse_float32"] = _landmark_case(big, _plateau(30, 1e-6), err5, runs=1)
+    rows["city_sparse_float32"]["registry_build_s"] = registry_s
+    t0 = time.perf_counter()
+    cov = big.covariance(method="sparse")
+    cov_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    lcov = big.landmark_covariance(method="sparse")
+    lcov_ms = (time.perf_counter() - t0) * 1e3
+    blocks = [cov[i] for i in range(1, len(gt5))] + list(lcov.values())
+    if not all(np.all(np.isfinite(b)) and np.all(np.linalg.eigvalsh(b) > 0) for b in blocks):
+        raise AssertionError("pose_landmark: city marginals not positive definite")
+    rows["city_sparse_float32"].update(
+        covariance_sparse_ms=cov_ms, landmark_covariance_sparse_ms=lcov_ms,
+        mid_sigma_t=float(np.sqrt(np.trace(cov[len(gt5) // 2][:3, :3]) / 3)))
+
+    gt2 = world2[0]
+    err2 = lambda o: max(float(np.linalg.norm(o.get_pose(i)[:2] - gt2[i, :2]))
+                         for i in range(0, len(gt2), 7))
+    for solver in ("dense", "sparse"):
+        rows[f"2d_{solver}_float64"] = _landmark_case(
+            _landmark_2d(world2, dev, pose_solver=solver), opts, err2)
+    _no_port_kernels("pose_landmark")
+    emit("pose_landmark", worlds=dict(
+        w3d=dict(poses=len(gt3), landmarks=len({j for (_, j, _) in world3[2]}),
+                 observations=len(world3[2])),
+        city=dict(poses=len(gt5), landmarks=len(lm5_init), observations=len(obs5)),
+        w2d=dict(poses=len(gt2), landmarks=len({j for (_, j, _) in world2[2]}),
+                 observations=len(world2[2]))),
+         worlds_build_s=worlds_s, plateau_rtol={"3d_2d": LANDMARK_RTOL, "city": 1e-6},
+         caps={"3d_2d": 60, "city": 30}, cases=rows, checks_3d=checks, tol=LANDMARK_TOL,
+         port_kernel_launches=0, device=name, nvidia_smi=smi)
 
 
 def _evaluations(summaries) -> int:

@@ -25,6 +25,13 @@ plain PyTorch ops, as the JAX package's run in XLA; so do the generic pose
 problem (``solvers.problem``) and the small utilities (``utils``).
 ``parallel`` shards the minimizers, the registrar and the CG and sparse
 pose-graph paths over a ``torch.distributed`` group (``mesh=``).
+Bundle adjustment (``BundleAdjuster``: the camera-landmark Schur solve
+in the grouped and flat layouts and over ``mesh=``), the BAL solver of the
+Snavely model (``solvers.bal.solve_bal``, dense and iterative Schur, with
+BAL file IO in ``io.bal`` and the scipy anchor in ``utils.anchor_np``) and
+the pose-landmark optimizers (``PoseLandmarkOptimizer``,
+``PoseLandmark2DOptimizer``: dense and sparse landmark-Schur solves and
+marginal covariances, g2o landmark records) run in plain PyTorch ops too.
 ``native`` binds the repository's C++ host pipeline (``native/``: the NDT
 map builder, the voxel filter and the matcher that writes the maha6
 buffer), built with g++ at first use; ``HybridRegistrar`` matches with it
@@ -67,6 +74,7 @@ from .pipelines import (
     register_point_to_plane,
 )
 from .solvers import (
+    BundleAdjuster,
     ConstraintType,
     FixedLagSmoother,
     MahalanobisDistanceMinimizer,
@@ -74,6 +82,8 @@ from .solvers import (
     PointToPlaneMinimizer,
     PoseGraphOptimizer,
     PoseGraphOptimizer2D,
+    PoseLandmark2DOptimizer,
+    PoseLandmarkOptimizer,
     ReprojectionErrorMinimizer,
     Summary,
     finalize_solve_batch,

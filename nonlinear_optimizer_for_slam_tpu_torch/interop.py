@@ -48,10 +48,24 @@ a given device:
   ``means``, ``normals``, ``mask``; ``TranslationDeltaCostFunctor``:
   ``target_translation``, ``sqrt_info``; ``RotationDeltaCostFunctor``:
   ``target_rotation``, ``sqrt_info``), built on ``device`` with each array
-  in its own dtype.
+  in its own dtype;
+- ``ba_data``: the ``BAData`` fields ``camera_indices``,
+  ``landmark_indices``, ``pixels`` and ``mask``, to ``device`` (the indices
+  as int64, the rest in ``dtype``);
+- ``ba_params``: the ``BAParams`` fields ``translations``, ``quaternions``
+  and ``landmarks``, to ``device`` in ``dtype``;
+- ``bal_problem``: the ``BALProblem`` fields ``camera_params``, ``points``,
+  ``camera_indices``, ``point_indices`` and ``observations``, as the port's
+  host ``BALProblem`` (float64 and int32, as ``io.bal`` reads them).
 
 :func:`to_reference` is the inverse but for ``problem``: the same dicts
 back, as numpy (the intrinsics as floats and ints).
+
+:func:`pose_landmark_from_reference` builds a port ``PoseLandmarkOptimizer``
+or ``PoseLandmark2DOptimizer`` holding a JAX one's registry (poses,
+landmarks, constants, constraints and observations with their sqrt_info,
+the losses and the learned loop switches), so that both solve, or answer
+covariance queries, on the same problem.
 
 :func:`fixed_lag_from_reference` builds a port ``FixedLagSmoother`` that
 carries a JAX ``FixedLagSmoother``'s state mid-stream (its window, its
@@ -77,11 +91,14 @@ from .core.options import (
     Options,
 )
 from .core.pose import Pose
+from .io.bal import BALProblem
 from .ops.mahalanobis import MahalanobisData
 from .ops.relative_pose import PoseGraphEdges
 from .solvers import problem as problem_mod
+from .solvers.bundle_adjustment import BAData, BAParams
 from .solvers.fixed_lag import FixedLagSmoother
 from .solvers.pose_graph import PoseGraph2DEdges
+from .solvers.pose_landmark import PoseLandmark2DOptimizer, PoseLandmarkOptimizer
 from .ops.reprojection import CameraIntrinsics, ReprojectionData
 from .pipelines.fused_registration import RegistrarMap
 from .pipelines.ndt import NdtMap
@@ -144,6 +161,9 @@ class PortState(NamedTuple):
     pose_graph_2d_edges: Optional[PoseGraph2DEdges] = None
     pose_graph_2d_state: Optional[PoseGraph2DState] = None
     problem: Optional[problem_mod.Problem] = None
+    ba_data: Optional[BAData] = None
+    ba_params: Optional[BAParams] = None
+    bal_problem: Optional[BALProblem] = None
 
 
 def _enum(cls, value):
@@ -197,6 +217,9 @@ def from_reference(
     pose_graph_2d_edges: Optional[Mapping[str, Optional[np.ndarray]]] = None,
     pose_graph_2d_state: Optional[Mapping[str, np.ndarray]] = None,
     problem: Optional[list] = None,
+    ba_data: Optional[Mapping[str, np.ndarray]] = None,
+    ba_params: Optional[Mapping[str, np.ndarray]] = None,
+    bal_problem: Optional[Mapping[str, np.ndarray]] = None,
     device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> PortState:
@@ -286,10 +309,28 @@ def from_reference(
                 device=device,
             )
             port_problem.add_residual_block(functor, _loss(block_loss))
+    port_ba_data = None
+    if ba_data is not None:
+        port_ba_data = BAData(
+            index(ba_data["camera_indices"]), index(ba_data["landmark_indices"]),
+            to_device(ba_data["pixels"]), to_device(ba_data["mask"]),
+        )
+    port_ba_params = None
+    if ba_params is not None:
+        port_ba_params = BAParams(*(to_device(ba_params[f]) for f in BAParams._fields))
+    port_bal = None
+    if bal_problem is not None:
+        port_bal = BALProblem(
+            np.array(bal_problem["camera_params"], np.float64),
+            np.array(bal_problem["points"], np.float64),
+            np.array(bal_problem["camera_indices"], np.int32),
+            np.array(bal_problem["point_indices"], np.int32),
+            np.array(bal_problem["observations"], np.float64),
+        )
     return PortState(
         port_map, port_data, port_pose, port_loss, port_options, port_registrar_map,
         port_reprojection, port_intrinsics, port_edges, port_graph_state,
-        port_edges_2d, port_state_2d, port_problem,
+        port_edges_2d, port_state_2d, port_problem, port_ba_data, port_ba_params, port_bal,
     )
 
 
@@ -354,6 +395,14 @@ def to_reference(state: PortState) -> dict:
             f: a.cpu().numpy()
             for f, a in zip(PoseGraph2DState._fields, state.pose_graph_2d_state)
         }
+    for key, cls in (("ba_data", BAData), ("ba_params", BAParams)):
+        value = getattr(state, key)
+        if value is not None:
+            out[key] = {f: a.cpu().numpy() for f, a in zip(cls._fields, value)}
+    if state.bal_problem is not None:
+        out["bal_problem"] = {
+            f: np.asarray(a) for f, a in zip(BALProblem._fields, state.bal_problem)
+        }
     return out
 
 
@@ -407,3 +456,68 @@ def fixed_lag_from_reference(
     gauge = state.get("gauge")
     sm._gauge = None if gauge is None else int(gauge)
     return sm
+
+
+def pose_landmark_from_reference(
+    state: Mapping[str, Any],
+    *,
+    dim: int = 3,
+    pose_solver: str = "dense",
+    device="cuda",
+    dtype: torch.dtype = torch.float64,
+):
+    """A port ``PoseLandmarkOptimizer`` (``dim=3``) or
+    ``PoseLandmark2DOptimizer`` (``dim=2``) holding the registry of a JAX
+    one, given as numpy (its public records and private fields of the same
+    names):
+
+    - ``poses``: {id: (4, 4) homogeneous matrix} (3-D, ``Pose.matrix()``)
+      or {id: (3,) xyt} (2-D);
+    - ``landmarks``: {id: (3,) or (2,)};
+    - ``constant_poses``, ``constant_landmarks``: ids;
+    - ``constraints``: a list of dicts with ``reference_index``,
+      ``query_index``, ``relative`` ((4, 4) matrix or (3,) xyt),
+      ``type`` and ``sqrt_info`` (None, diagonal or matrix);
+    - ``observations``: a list of dicts with ``pose_index``,
+      ``landmark_index``, ``measurement`` and ``sqrt_info``;
+    - ``switch_penalty``; ``edge_loss`` and ``obs_loss`` as
+      ``(class name, {parameter: value})`` or None;
+    - ``last_switches``: the loop switches a solve learned, or None.
+
+    Records are copied in as they are stored (no re-expansion of the
+    sqrt-information)."""
+    cls = PoseLandmarkOptimizer if dim == 3 else PoseLandmark2DOptimizer
+    opt = cls(
+        dtype=dtype, switch_penalty=float(state["switch_penalty"]),
+        edge_loss=_loss(state.get("edge_loss")), obs_loss=_loss(state.get("obs_loss")),
+        pose_solver=pose_solver, device=device,
+    )
+    f64 = lambda a: np.array(a, np.float64)
+    opt_f64 = lambda a: None if a is None else f64(a)
+
+    def pose_of(v):
+        v = f64(v)
+        return Pose.from_matrix(v) if dim == 3 else v
+
+    for i, v in state["poses"].items():
+        opt._poses[int(i)] = pose_of(v)
+    for j, v in state["landmarks"].items():
+        opt._landmarks[int(j)] = f64(v)
+    opt._constant_poses = {int(i) for i in state["constant_poses"]}
+    opt._constant_landmarks = {int(j) for j in state["constant_landmarks"]}
+    key = "relative_pose" if dim == 3 else "relative_xyt"
+    opt._constraints = [
+        dict(reference_index=int(c["reference_index"]), query_index=int(c["query_index"]),
+             **{key: pose_of(c["relative"])}, type=int(c["type"]),
+             sqrt_info=opt_f64(c["sqrt_info"]))
+        for c in state["constraints"]
+    ]
+    opt._observations = [
+        dict(pose_index=int(o["pose_index"]), landmark_index=int(o["landmark_index"]),
+             measurement=f64(o["measurement"]), sqrt_info=opt_f64(o["sqrt_info"]))
+        for o in state["observations"]
+    ]
+    switches = state.get("last_switches")
+    if switches is not None:
+        opt._last_switches = f64(switches)
+    return opt

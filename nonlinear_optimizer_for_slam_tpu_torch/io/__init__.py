@@ -1,3 +1,12 @@
-from . import g2o
+from . import bal, g2o
+from .bal import BALProblem, read_bal, snavely_project, synthetic_bal_problem, write_bal
 
-__all__ = ["g2o"]
+__all__ = [
+    "bal",
+    "g2o",
+    "BALProblem",
+    "read_bal",
+    "snavely_project",
+    "synthetic_bal_problem",
+    "write_bal",
+]

@@ -16,9 +16,10 @@ Records read and written:
   both: ``FIX id``
 
 :func:`load_pose_graph` builds a :class:`PoseGraphOptimizer` from a 3-D
-file of poses and a :class:`PoseGraphOptimizer2D` from a 2-D one; landmark
-records raise NotImplementedError until the pose-landmark optimizers are
-ported.
+file of poses and a :class:`PoseGraphOptimizer2D` from a 2-D one; a file
+with landmark records loads into a ``PoseLandmarkOptimizer`` (3-D) or a
+``PoseLandmark2DOptimizer`` (2-D), and :func:`save_pose_graph` writes
+either back with its landmarks and observations.
 
 Quaternions are (x, y, z, w) on disk (g2o/Eigen order) and (w, x, y, z) in
 this package. Information matrices are the upper triangle row by row,
@@ -53,6 +54,7 @@ from ..solvers.pose_graph import (
     PoseGraphOptimizer2D,
     sqrt_info_from_information,
 )
+from ..solvers.pose_landmark import PoseLandmark2DOptimizer, PoseLandmarkOptimizer
 
 _TRI6 = [(i, j) for i in range(6) for j in range(i, 6)]  # 21 entries
 _TRI3 = [(i, j) for i in range(3) for j in range(i, 3)]  # 6 entries
@@ -251,36 +253,44 @@ def load_pose_graph(
     switch_penalty: Optional[float] = None,
     unit_information: bool = False,
     **optimizer_kwargs,
-) -> PoseGraphOptimizer:
-    """Read a g2o file into a ready-to-solve :class:`PoseGraphOptimizer`
-    (3-D files) or :class:`PoseGraphOptimizer2D` (2-D files);
-    ``optimizer_kwargs``, ``device=`` included, go to its constructor.
+):
+    """Read a g2o file into a ready-to-solve optimizer:
+    :class:`PoseGraphOptimizer` (3-D files) or :class:`PoseGraphOptimizer2D`
+    (2-D files), or with landmark records ``PoseLandmarkOptimizer`` /
+    ``PoseLandmark2DOptimizer``; ``optimizer_kwargs``, ``device=``
+    included, go to its constructor.
 
     Edges whose endpoint ids differ by >= ``loop_closure_gap`` are loop
     closures; with ``switchable_loops=True`` they get switchable
     constraints (``switch_penalty`` defaults to the discriminating 0.03).
     ``unit_information=True`` ignores the file's information matrices (the
     reference's unweighted behavior). The first vertex (or every FIX
-    record) is held constant for gauge."""
+    record) is held constant for gauge; a FIX on a landmark holds the
+    landmark."""
     graph = read_g2o(path)
-    if graph.landmarks or graph.landmark_edges:
-        raise NotImplementedError(
-            f"{path}: landmark records load into PoseLandmarkOptimizer, which "
-            "is not ported to the PyTorch package yet"
-        )
     if switch_penalty is not None:
         optimizer_kwargs.setdefault("switch_penalty", switch_penalty)
     elif switchable_loops:
         optimizer_kwargs.setdefault("switch_penalty", 0.03)
 
     if graph.dim == 3:
-        opt = PoseGraphOptimizer(**optimizer_kwargs)
+        cls = PoseLandmarkOptimizer if graph.landmarks else PoseGraphOptimizer
+        opt = cls(**optimizer_kwargs)
         for vid in sorted(graph.vertices):
             opt.set_pose(vid, _pose_from_vec7(graph.vertices[vid]))
     else:
-        opt = PoseGraphOptimizer2D(**optimizer_kwargs)
+        cls = PoseLandmark2DOptimizer if graph.landmarks else PoseGraphOptimizer2D
+        opt = cls(**optimizer_kwargs)
         for vid in sorted(graph.vertices):
             opt.set_pose(vid, graph.vertices[vid])
+    if graph.landmarks:
+        for lid in sorted(graph.landmarks):
+            opt.set_landmark(lid, graph.landmarks[lid])
+        for e in graph.landmark_edges:
+            opt.set_observation(
+                e.i, e.j, e.measurement,
+                sqrt_info=None if unit_information else sqrt_info_from_information(e.information),
+            )
     for e in graph.edges:
         is_loop = switchable_loops and abs(e.j - e.i) >= loop_closure_gap
         if unit_information:
@@ -297,7 +307,10 @@ def load_pose_graph(
             sqrt_info=sqrt_info,
         )
     for vid in graph.fixed if graph.fixed else {min(graph.vertices)}:
-        opt.set_pose_constant(vid)
+        if vid in graph.landmarks:
+            opt.set_landmark_constant(vid)
+        else:
+            opt.set_pose_constant(vid)
     return opt
 
 
@@ -360,26 +373,32 @@ def write_g2o(path: str, graph: G2oGraph) -> None:
 
 
 def save_pose_graph(path: str, optimizer, graph: Optional[G2oGraph] = None) -> None:
-    """Write an optimizer's CURRENT poses as a g2o file (3-D for a
-    :class:`PoseGraphOptimizer`, 2-D for a :class:`PoseGraphOptimizer2D`).
+    """Write an optimizer's CURRENT poses (and landmarks) as a g2o file:
+    3-D for a :class:`PoseGraphOptimizer` or ``PoseLandmarkOptimizer``,
+    2-D for a :class:`PoseGraphOptimizer2D` or ``PoseLandmark2DOptimizer``.
 
     With ``graph`` (the G2oGraph it was loaded from), the original edges
-    and information matrices are kept and only vertex estimates are
-    replaced. Without it, edges are rebuilt from the optimizer's
-    constraints with unit information."""
+    and information matrices are kept and only vertex and landmark
+    estimates are replaced. Without it, edges and observations are rebuilt
+    from the optimizer's records with unit information."""
+    landmarks = hasattr(optimizer, "landmark_indices")
     if graph is not None:
         out = G2oGraph(
             dim=graph.dim,
             edges=graph.edges,
             fixed=set(graph.fixed),
             landmark_edges=graph.landmark_edges,
-            landmarks=dict(graph.landmarks),
         )
         for vid in graph.vertices:
             out.vertices[vid] = _vertex_vec(optimizer, vid, graph.dim)
+        for lid in graph.landmarks:
+            out.landmarks[lid] = (
+                np.asarray(optimizer.get_landmark(lid), np.float64)
+                if landmarks else graph.landmarks[lid]
+            )
         write_g2o(path, out)
         return
-    dim = 2 if isinstance(optimizer, PoseGraphOptimizer2D) else 3
+    dim = 2 if isinstance(optimizer, (PoseGraphOptimizer2D, PoseLandmark2DOptimizer)) else 3
     out = G2oGraph(dim=dim)
     for vid in optimizer.pose_indices():
         out.vertices[vid] = _vertex_vec(optimizer, vid, dim)
@@ -392,6 +411,14 @@ def save_pose_graph(path: str, optimizer, graph: Optional[G2oGraph] = None) -> N
             meas = np.asarray(c["relative_xyt"], np.float64)
             info = np.eye(3)
         out.edges.append(G2oEdge(c["reference_index"], c["query_index"], meas, info))
+    if landmarks:
+        for lid in optimizer.landmark_indices():
+            out.landmarks[lid] = np.asarray(optimizer.get_landmark(lid), np.float64)
+        for o in optimizer.observations():
+            out.landmark_edges.append(G2oEdge(
+                o["pose_index"], o["landmark_index"], np.asarray(o["measurement"], np.float64),
+                np.eye(3 if dim == 3 else 2),
+            ))
     write_g2o(path, out)
 
 

@@ -7,8 +7,12 @@ on the CPU (``--device cpu``).
 - ``pose_graph_slam`` and ``hand_eye_calibration`` print, line for line,
   what the JAX examples print (both solve in float64 here: the port by
   default, the JAX package under the tests' x64 mode).
-- Importing ``native``, ``solvers.fixed_lag`` and every example module
-  leaves no ``jax`` module loaded (in a fresh interpreter).
+- ``bal_solve`` with no file, on a small ``--max-iterations`` on the CPU,
+  prints its per-iteration trace and its final cost, and writes the solved
+  problem as a BAL file the JAX reader reads.
+- Importing ``native``, ``solvers.fixed_lag``, the bundle adjustment, BAL
+  and pose-landmark modules with their IO and anchor, and every example
+  module leaves no ``jax`` module loaded (in a fresh interpreter).
 
 The heavier examples driven as libraries have files of their own:
 tests/test_torch_incremental_mapping.py, tests/test_torch_multi_robot.py
@@ -27,6 +31,7 @@ import pytest
 import torch
 
 from nonlinear_optimizer_for_slam_tpu_torch.examples import (
+    bal_solve,
     g2o_solve,
     hand_eye_calibration,
     pose_graph_slam,
@@ -34,7 +39,7 @@ from nonlinear_optimizer_for_slam_tpu_torch.examples import (
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = (
-    "fixed_lag_slam", "full_slam", "g2o_solve", "hand_eye_calibration",
+    "bal_solve", "fixed_lag_slam", "full_slam", "g2o_solve", "hand_eye_calibration",
     "incremental_mapping", "multi_robot_map_merge", "ndt_registration",
     "pose_graph_slam", "serving_batch",
 )
@@ -89,6 +94,21 @@ def test_g2o_solve_demo(tmp_path, monkeypatch):
     assert (tmp_path / "solved.g2o").exists()
 
 
+def test_bal_solve_demo(tmp_path):
+    """No-input mode on the CPU: the problem-49-7776-shaped synthetic
+    problem, a short solve, its trace and final cost in the Ceres
+    convention, and the solved file."""
+    from nonlinear_optimizer_for_slam_tpu.io import bal as jbal_io
+
+    out_path = tmp_path / "solved.txt"
+    out = _printed(bal_solve.main, ["--max-iterations", "2", "--cpu", "-o", str(out_path)])
+    assert "problem-49-7776 shape" in out
+    assert "iter   0: cost" in out and "iter   1: cost" in out
+    assert "final cost" in out and "Ceres convention" in out
+    solved = jbal_io.read_bal(str(out_path))
+    assert (solved.num_cameras, solved.num_points, solved.num_observations) == (49, 7776, 31104)
+
+
 @pytest.mark.parametrize(
     "port_module, name",
     [(pose_graph_slam, "pose_graph_slam"), (hand_eye_calibration, "hand_eye_calibration")],
@@ -102,10 +122,16 @@ def test_example_prints_what_the_jax_example_prints(port_module, name):
 
 
 def test_the_port_modules_import_no_jax():
-    """In a fresh interpreter, the binding, the smoother and every example
-    import without loading jax or any module of the JAX package."""
+    """In a fresh interpreter, the binding, the smoother, the bundle
+    adjustment, BAL and pose-landmark modules and every example import
+    without loading jax or any module of the JAX package."""
     mods = ["nonlinear_optimizer_for_slam_tpu_torch.native",
             "nonlinear_optimizer_for_slam_tpu_torch.solvers.fixed_lag",
+            "nonlinear_optimizer_for_slam_tpu_torch.solvers.bundle_adjustment",
+            "nonlinear_optimizer_for_slam_tpu_torch.solvers.bal",
+            "nonlinear_optimizer_for_slam_tpu_torch.solvers.pose_landmark",
+            "nonlinear_optimizer_for_slam_tpu_torch.io.bal",
+            "nonlinear_optimizer_for_slam_tpu_torch.utils.anchor_np",
             "nonlinear_optimizer_for_slam_tpu_torch.examples"]
     mods += [f"nonlinear_optimizer_for_slam_tpu_torch.examples.{e}" for e in EXAMPLES]
     code = (

@@ -14,7 +14,8 @@ the JAX package.
   constraint types and whitening, gauge, switch penalty) with and without
   ``switchable_loops`` and ``unit_information``; a 2-D file loads into
   JAX's ``PoseGraphOptimizer2D`` and a 2-D file with landmark records
-  raises NotImplementedError; ``save_pose_graph`` writes JAX's text;
+  into a ``PoseLandmark2DOptimizer`` like JAX's; ``save_pose_graph``
+  writes JAX's text;
 - ``interop`` carries ``PoseGraphEdges`` (sqrt_info None, diagonal, full)
   and a pose-graph state onto the device and back exactly.
 """
@@ -117,7 +118,9 @@ def test_round_trip_against_jax(tmp_path, full_info_graph, rng):
 def test_two_dimensional_files_read_alike_and_do_not_load(tmp_path):
     """2-D files read alike and load into JAX's PoseGraphOptimizer2D (the
     SE(2) optimizer is ported; before it was, they did not load); a 2-D
-    file with landmark records still does not load."""
+    file with landmark records loads into a PoseLandmark2DOptimizer with
+    JAX's records (the pose-landmark optimizers are ported; before they
+    were, it raised NotImplementedError)."""
     path = tmp_path / "planar.g2o"
     path.write_text(
         "VERTEX_SE2 0 0 0 0\nVERTEX_SE2 1 1 0 0.1\nVERTEX_SE2 2 2 0.1 0.2\n"
@@ -133,8 +136,14 @@ def test_two_dimensional_files_read_alike_and_do_not_load(tmp_path):
         assert np.array_equal(a["sqrt_info"], b["sqrt_info"])
     landmarks = tmp_path / "landmarks.g2o"
     landmarks.write_text(path.read_text() + "VERTEX_XY 7 1 2\nEDGE_SE2_XY 1 7 0 2 1 0 1\n")
-    with pytest.raises(NotImplementedError, match="landmark"):
-        tg2o.load_pose_graph(str(landmarks), device="cpu")
+    topt = tg2o.load_pose_graph(str(landmarks), device="cpu")
+    jopt = jg2o.load_pose_graph(str(landmarks))
+    assert type(topt).__name__ == type(jopt).__name__ == "PoseLandmark2DOptimizer"
+    assert np.array_equal(topt.get_landmark(7), jopt.get_landmark(7))
+    for a, b in zip(topt.observations(), jopt.observations(), strict=True):
+        assert (a["pose_index"], a["landmark_index"]) == (b["pose_index"], b["landmark_index"])
+        assert np.array_equal(a["measurement"], b["measurement"])
+        assert np.array_equal(a["sqrt_info"], b["sqrt_info"])
     bad = tmp_path / "bad.g2o"
     bad.write_text("VERTEX_SE3:QUAT 0 0 0 0 0 0 0 1\nEDGE_SE3:QUAT 0 1 1 2 3\n")
     with pytest.raises(ValueError, match="malformed EDGE_SE3:QUAT"):
