@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (maha6, maha3, maha3c, reproj, p2p) from the
+Builds the port's CUDA kernels (maha6, maha3, maha3c, reproj, p2p, and the
+bf16-row instantiations of maha6 and maha3) from the
 sources in this checkout, holds each kernel against its plain PyTorch
 version on the card, and drives the port's main paths through the kernels:
 on the full room fixture the host-driven 6-DoF NDT registration
@@ -67,6 +68,19 @@ chunked and iterative Schur; float64 against the CPU port), and the
 pose-landmark optimizers on its 3-D world (dense and sparse against each
 other and the CPU port), city (sparse, with sparse covariances) and 2-D
 world; the two-rank ``sharded`` phase also runs ``BundleAdjuster(mesh=)``.
+Then the bf16-row instantiations of maha6 and maha3 (phase
+``bf16_rows``: each against its plain version and bit for bit the float32
+kernel on the widened rows, on the phase-2 cases, the edge N and zero
+padding; its main path, run_all.py's 40-iteration rate solve on the
+fixture's bf16 rows, launches counted; float32 against bf16 rows timed in
+turns), then, with no port kernel, the GPS-INS batch
+(``InertialGraphOptimizer``, 500 keyframes of 200 Hz IMU and GPS, float64,
+8,000 unknowns; 41 keyframes against the CPU port), the online
+``FixedLagInertialSmoother`` (lag 10, 200 keyframes, blocking and
+``update_async`` every 4), the Sim(3) essential graph (run_all.py's 200
+keyframes with 52x scale drift, float32 with the float64 polish on the card
+and float64, against the scipy optimum) and a 2,000-keyframe drifting chain
+through ``solver="auto"`` (sparse); ``gps_ins`` runs in the examples phase.
 Every phase prints one JSON line; a phase that fails ends the run with a
 non-zero exit code.
 The line before the last is the ``kernels`` summary, the last line
@@ -129,6 +143,12 @@ TPU_KERNEL = {
     "p2p": "nonlinear_optimizer_for_slam_tpu/ops/pallas_kernels.py:954",
 }
 
+# Warm runs a median of the descriptive walls takes (20 before the inertial
+# and Sim(3) phases came; cut to 10 when they took the whole run near its
+# time limit: the medians move by less than the host's drift between
+# calls).
+TIMING_RUNS = 10
+
 # Kernel vs plain version: the two sum in different orders (registers, warp
 # shuffles and tile sums against PyTorch's reductions) and nvcc
 # contracts to FMAs, so each output may differ by a few float32 roundings
@@ -144,8 +164,14 @@ ATOL = 1e-6
 P2P_START_T = (0.0, 0.0, 0.05)
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line, with the seconds since the script started (``t_s``):
+    where the run's time goes, phase by phase."""
+    t_s = round(time.perf_counter() - _START, 1)
+    print(json.dumps({"phase": phase, **fields, "t_s": t_s}), flush=True)
 
 
 def main() -> int:
@@ -541,14 +567,14 @@ def main() -> int:
         t_err_mm=t_err * 1000.0, final_cost=final_cost,
         pose_t=res.pose.translation.tolist(), pose_q_wxyz=res.pose.quaternion().tolist(),
     )
-    walls = _walls_ms(register, 20)
+    walls = _walls_ms(register, TIMING_RUNS)
     median_ms = statistics.median(walls)
     # the two layers of one outer iteration, timed alone: matching, and the
     # first inner LM solve (40 iterations) on its correspondences
     match_ms = _wall_ms(lambda: matching.match_point_cloud(
         f32(valid.means), f32(valid.sqrt_informations), f32(local), ones,
         f32(np.eye(3)), f32(np.zeros(3)),
-    ), 20)
+    ), TIMING_RUNS)
     solve_ms = _wall_ms(lambda: minimizer.solve(port.Options(), matched, identity), 3)
     emit(
         "main_path_timing", metric="register_ndt_wall_ms", runs=len(walls),
@@ -848,10 +874,10 @@ def main() -> int:
         plain_path_costs=sum_t.records.cost[: _evaluations([sum_t])].tolist(),
     )
 
-    walls = _walls_ms(run_planar, 20)
-    reproj_walls = _walls_ms(run_reproj, 20)
+    walls = _walls_ms(run_planar, TIMING_RUNS)
+    reproj_walls = _walls_ms(run_reproj, TIMING_RUNS)
     emit(
-        "slice3_timing", metric="wall_ms", runs=20,
+        "slice3_timing", metric="wall_ms", runs=TIMING_RUNS,
         planar_register_ndt={
             "median_ms": statistics.median(walls), "min_ms": min(walls), "max_ms": max(walls),
             "lm_evaluations": planar_evals,
@@ -879,7 +905,7 @@ def main() -> int:
     # ---- 7. the registrar's timings (descriptive) ---------------------------
     timing = {}
     for objective, (reg, scan_local, init, stats) in runs.items():
-        w = _walls_ms(lambda: reg.register(scan_local, init), 20)
+        w = _walls_ms(lambda: reg.register(scan_local, init), TIMING_RUNS)
         timing[objective] = {
             "median_ms": statistics.median(w), "min_ms": min(w), "max_ms": max(w),
             "steps": stats["steps"], "host_reads": stats["host_reads"],
@@ -888,7 +914,7 @@ def main() -> int:
         }
     batch_w = _walls_ms(lambda: reg_m.register_batch([local] * B, starts), 5)
     emit(
-        "registrar_timing", metric="NdtRegistrar.register_wall_ms", runs=20,
+        "registrar_timing", metric="NdtRegistrar.register_wall_ms", runs=TIMING_RUNS,
         objectives=timing, batch16_ms_per_scan=statistics.median(batch_w) / B,
         batch16_median_ms=statistics.median(batch_w), device=name, nvidia_smi=smi,
     )
@@ -1079,7 +1105,11 @@ def main() -> int:
         check_only(f"batched_{label}", counts, kernel, rounds)
         # the path's own rows against the plain version, lane by lane
         rows_err = batch_vs_plain(kernel, pack(data_b), f"batched_{label} rows")
+        torch.cuda.synchronize()
+        t_serial = time.perf_counter()
         serial = [serial_fn(d, s0) for d, s0 in zip(items, starts_b)]
+        torch.cuda.synchronize()
+        serial_ms = (time.perf_counter() - t_serial) * 1e3  # one pass: the checked one
         serial_iters = [int(su.iterations) for _, su in serial]
         worst_pose = max(pose_diff(p, sp) for p, (sp, _) in zip(poses_b, serial))
         if (iters_b.tolist() != serial_iters or worst_pose > SERIAL_POSE_ATOL
@@ -1109,14 +1139,6 @@ def main() -> int:
                 f"{unsettled}, pose difference {plain_pose} (limit {plain_atol})"
             )
         batched_ms = _wall_ms(lambda: batched_fn(data_b, starts_b), 5)
-        serial_walls = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            for d, s0 in zip(items, starts_b):
-                serial_fn(d, s0)
-            torch.cuda.synchronize()
-            serial_walls.append((time.perf_counter() - t0) * 1e3)
-        serial_ms = statistics.median(serial_walls)
         B = len(starts_b)
         batch_report[label] = {
             "batch": B, "n": int(items[0].mask.shape[0]), "kernel": kernel,
@@ -1130,7 +1152,8 @@ def main() -> int:
             "counts_apart_instances": apart, "max_pose_diff_vs_plain_path": plain_pose,
             "plain_path_pose_atol": plain_atol, "rows_vs_plain_max_abs_err": rows_err,
             "batched_ms_per_solve": batched_ms / B, "serial_ms_per_solve": serial_ms / B,
-            "batched_median_ms": batched_ms, "serial_median_ms": serial_ms, "runs": 5,
+            "batched_median_ms": batched_ms, "serial_ms": serial_ms, "batched_runs": 5,
+            "serial_runs": 1,
         }
     # the async form and its one copy to the host give the same bits
     data_b = stack(maha_items)
@@ -1294,11 +1317,13 @@ def main() -> int:
         kernel_ms, kernel_host_ms = _time_ms(lambda: partials[kernel](params, packed, code), 200)
         plain = lambda: terms[kernel](params, packed, code).sum(dim=-1)
         plain_ms, plain_host_ms = _time_ms(plain, 50)
-        nbytes = packed.numel() * 4 + params.numel() * 4 + n_out * 4
+        # each row read once (2 bytes an element for bf16 rows), each output
+        # written once
+        nbytes = rows * n * packed.element_size() + params.numel() * 4 + n_out * 4
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         flop_ms = n * flop_per_factor / PEAK_FP32_FLOP_PER_S * 1e3
         row = dict(
-            kernel=kernel, n=n, device=name, nvidia_smi=smi,
+            kernel=kernel, rows_dtype=str(packed.dtype)[6:], n=n, device=name, nvidia_smi=smi,
             ms_back_to_back=kernel_ms, ms_host_bound=kernel_host_ms,
             plain_ms_back_to_back=plain_ms, plain_ms_host_bound=plain_host_ms,
             bytes=nbytes, flop=n * flop_per_factor, bytes_ms=bytes_ms, flop_ms=flop_ms,
@@ -1368,6 +1393,115 @@ def main() -> int:
     emit("onepass_ab", empty_kernel_ms_back_to_back=floor_ms,
          empty_kernel_ms_host_bound=floor_host_ms, one_pass_small_n_ms_back_to_back=ladder,
          designs=ab, device=name, nvidia_smi=smi)
+
+    # ---- 2c. the bf16-row instantiations of maha6 and maha3 ----------------
+    # The same kernels over pack_maha6(..., buffer_dtype=torch.bfloat16)
+    # rows: each held to its plain version (the rows widened to float32) on
+    # the phase-2 cases, the edge N and zero padding, and to the float32
+    # kernel on the widened rows bit for bit (only the loads differ); then
+    # their main path, run_all.py's rate solve (_packed_lm_solve, 40 LM
+    # iterations forced) on the fixture's bf16 rows, launches counted.
+    from nonlinear_optimizer_for_slam_tpu_torch.core.options import ConvergenceHandle
+    from nonlinear_optimizer_for_slam_tpu_torch.pipelines import fused_registration as fr
+
+    def to_bf16(packed):
+        return ck.lane_aligned(packed.to(torch.bfloat16))
+
+    bf16_cases = {
+        kernel: {
+            "fixture_n18712": (to_bf16(fixture_packed)[None], [identity]),
+            "ragged_n1000003": (to_bf16(random_packed(kernel, 1_000_003))[None], [rand_pose]),
+            "batch3": (to_bf16(batch3(kernel)), [rand_pose, identity, rand_pose.inverse()]),
+        }
+        for kernel in ck.BF16_ROWS
+    }
+    bf16_report = {}
+    for kernel, kcases in bf16_cases.items():
+        report = {}
+        for case, (packed, poses) in kcases.items():
+            widened = ck.lane_aligned(packed.float())
+            for loss_ in losses:
+                code, params = params_of(kernel, poses, loss_)
+                got = partials[kernel](params, packed, code)
+                again = partials[kernel](params, packed, code)
+                label = f"{kernel} bf16 {case} {type(loss_).__name__}"
+                if not same_bits(got, again):
+                    raise AssertionError(f"{label}: two runs differ")
+                if not same_bits(got, partials[kernel](params, widened, code)):
+                    raise AssertionError(f"{label}: not the float32 kernel's bits on the "
+                                         "widened rows")
+                err = check_close(label, got, terms[kernel](params, packed, code))
+                worst[(f"{kernel}_bf16", case, type(loss_).__name__)] = err
+                report[f"{case}/{type(loss_).__name__}"] = err
+        packed, poses = kcases["fixture_n18712"]
+        code, params = params_of(kernel, poses, losses[1])
+        padded = to_bf16(torch.nn.functional.pad(packed, (0, 4099)))
+        if not same_bits(partials[kernel](params, packed, code),
+                         partials[kernel](params, padded, code)):
+            raise AssertionError(f"{kernel} bf16: zero padding changes the result")
+        for n in (0, 1, 3, 1023, 1025, 18713):
+            packed = to_bf16(random_packed(kernel, n))[None]
+            for loss_ in losses:
+                code, params = params_of(kernel, [rand_pose], loss_)
+                label = f"{kernel} bf16 n{n} {type(loss_).__name__}"
+                got = partials[kernel](params, packed, code)
+                if n == 0 and bool(got.any()):
+                    raise AssertionError(f"{label}: {got.tolist()} for no factor")
+                report[f"n{n}/{type(loss_).__name__}"] = check_close(
+                    label, got, terms[kernel](params, packed, code))
+        bf16_report[kernel] = report
+    # the main path: 40 forced LM iterations on the fixture's bf16 rows
+    rate_opts = port.Options().replace(convergence_handle=ConvergenceHandle(0.0, 0.0, 0.0))
+    rate_loss = port.ExponentialLoss(1.0, 1.0)
+    rows16 = to_bf16(fixture_packed)
+    rows32 = ck.lane_aligned(rows16.float())
+    t_start = torch.zeros(3, device=dev)
+    q_start = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    bf16_path = {}
+    for kernel, planar in (("maha6", False), ("maha3", True)):
+        ck.reset_launches()
+        out16 = fr._packed_lm_solve(t_start, q_start, rows16, rate_loss, rate_opts, planar=planar)
+        torch.cuda.synchronize()
+        launches16 = dict(ck.LAUNCHES)
+        ck.reset_launches()
+        out32 = fr._packed_lm_solve(t_start, q_start, rows32, rate_loss, rate_opts, planar=planar)
+        torch.cuda.synchronize()
+        launches32 = dict(ck.LAUNCHES)
+        iters = int(out16[2].item())
+        others = {k: v for k, v in launches16.items() if k != f"{kernel}_bf16" and v}
+        if not (launches16[f"{kernel}_bf16"] == iters == 40 and not others
+                and launches32[kernel] == 40):
+            raise AssertionError(f"bf16 {kernel} path: launches {launches16} / {launches32} "
+                                 f"for {iters} LM iterations")
+        if not all(torch.equal(a, b) for a, b in zip(out16, out32)):
+            raise AssertionError(f"bf16 {kernel} path: not the float32 kernel's solve on the "
+                                 f"widened rows: {[x.tolist() for x in out16]} vs "
+                                 f"{[x.tolist() for x in out32]}")
+        path_launches[f"{kernel}_bf16"] = launches16[f"{kernel}_bf16"]
+        bf16_path[kernel] = dict(lm_iterations=iters, launches=launches16[f"{kernel}_bf16"],
+                                 t=out16[0].tolist(), final_cost=float(out16[3]),
+                                 solve_ms_median=_wall_ms(lambda: fr._packed_lm_solve(
+                                     t_start, q_start, rows16, rate_loss, rate_opts,
+                                     planar=planar)[3].item(), 5))
+    # float32 against bf16 rows, back to back in turns, at the main path's
+    # N and at 1,000,003
+    bf16_ab = {}
+    for kernel in ck.BF16_ROWS:
+        for case in ("fixture_n18712", "ragged_n1000003"):
+            packed, poses = bf16_cases[kernel][case]
+            widened = ck.lane_aligned(packed.float())
+            code, params = params_of(kernel, poses, losses[1])
+            calls = {"float32": lambda: partials[kernel](params, widened, code),
+                     "bf16": lambda: partials[kernel](params, packed, code)}
+            times = {"float32": [], "bf16": []}
+            for rows in ("float32", "bf16", "bf16", "float32"):
+                times[rows].append(_time_ms(calls[rows], 200)[0])
+            bf16_ab[f"{kernel}/n{packed.shape[-1]}"] = {
+                f"{k}_ms_back_to_back": v for k, v in times.items()}
+    emit("bf16_rows", rtol_of_abs_sum=RTOL, atol=ATOL, bitwise_repeatable=True,
+         bitwise_float32_kernel_on_widened_rows=True, zero_padding_invariant=True,
+         cases=bf16_report, main_path=bf16_path, order="float32 bf16 bf16 float32",
+         ab=bf16_ab, device=name, nvidia_smi=smi)
     # ---- the SE(3) pose graph, float64 (no port kernel on its path) --------
     _pose_graph_reference(dev, name, smi)
     sphere = _pose_graph_sphere2500(dev, name, smi)
@@ -1402,18 +1536,27 @@ def main() -> int:
     _bundle_adjustment(dev, name, smi)
     _bal(dev, name, smi)
     _pose_landmark(dev, name, smi)
+    # ---- the inertial stack and the Sim(3) essential graph (no port
+    # kernel on their path; gps_ins runs in the examples phase) ----------
+    stream = _gps_ins_stream(max(GPS_INS_KEYFRAMES, GPS_INS_SMOOTHER_KEYFRAMES))
+    _gps_ins_batch(dev, name, smi, stream)
+    _inertial_smoother(dev, name, smi, stream)
+    del stream
+    _sim3(dev, name, smi)
 
     kernels = []
-    for kernel in KERNEL_SHAPE:
-        row = time_kernel(kernel, *cases[kernel][main_case[kernel]])
+    for kernel in (*KERNEL_SHAPE, *(f"{k}_bf16" for k in ck.BF16_ROWS)):
+        base = kernel.removesuffix("_bf16")
+        kcases = bf16_cases[base] if kernel != base else cases[kernel]
+        row = time_kernel(base, *kcases[main_case[base]])
         bytes_ms, flop_ms = row["bytes_ms"], row["flop_ms"]
         kernels.append({
             "name": kernel,
             "route": "cuda",
-            "source": f"nonlinear_optimizer_for_slam_tpu_torch/csrc/{kernel}.cu",
-            "replaces": TPU_KERNEL[kernel],
+            "source": f"nonlinear_optimizer_for_slam_tpu_torch/csrc/{base}.cu",
+            "replaces": TPU_KERNEL[base],
             "launches": path_launches[kernel],
-            "max_abs_err": worst[(kernel, main_case[kernel], "ExponentialLoss")],
+            "max_abs_err": worst[(kernel, main_case[base], "ExponentialLoss")],
             "ms": row["ms_back_to_back"],
             "plain_ms": row["plain_ms_back_to_back"],
             "bound_ms": max(bytes_ms, flop_ms),
@@ -1685,8 +1828,10 @@ def _pose_graph_sphere2500(dev, name: str, smi: str):
     trajectory = _trajectory_errors(
         np.concatenate([banded_pos, banded_quat], axis=1), _sphere_truth(truth), planar=False)
     banded_cost = float(summary.final_cost)
+    # one timed solve (the auto solve above warmed it; a median of 3 before,
+    # cut with TIMING_RUNS)
     runs = {"banded": dict(final_cost=banded_cost, rmse_after=rmse(banded_pos),
-                           **_pg_timed(opt, initial, None)[0])}
+                           **_pg_timed(opt, initial, None, runs=0)[0])}
     # dense: 17,500 unknowns, one timed solve; CG (chain preconditioner,
     # 250 CG iterations a step, about a second an LM iteration here)
     # capped at 10 LM iterations: its inexact steps need not meet the
@@ -3141,13 +3286,14 @@ def _hybrid_registrar(dev, name: str, smi: str, nat_map, nat_scan, true_pose,
         local, np.eye(3), np.zeros(3), valid.means, valid.sqrt_informations, 1.0, 2,
         lanes, out=host_np, num_threads=0,
     )
-    match_ms = _wall_ms(match, 20)
+    match_ms = _wall_ms(match, TIMING_RUNS)
     match()
-    upload_ms = _wall_ms(lambda: dev_buf.copy_(host, non_blocking=True), 20)
+    upload_ms = _wall_ms(lambda: dev_buf.copy_(host, non_blocking=True), TIMING_RUNS)
     packed = dev_buf[:, :nk]
     t0 = torch.zeros(3, device=dev)
     q0 = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
-    lm_ms = _wall_ms(lambda: fr._packed_lm_solve(t0, q0, packed, loss, opts)[3].item(), 20)
+    lm_ms = _wall_ms(lambda: fr._packed_lm_solve(t0, q0, packed, loss, opts)[3].item(),
+                     TIMING_RUNS)
 
     # the kernel on the C++-packed buffer against its plain version
     code, loss_ab = ck.maha6_loss_ab(loss, dev)
@@ -3161,10 +3307,10 @@ def _hybrid_registrar(dev, name: str, smi: str, nat_map, nat_scan, true_pose,
     real = int(host_np[15].sum())
 
     walls = {
-        "hybrid_register": _walls_ms(lambda: hyb.register(local, identity), 20),
+        "hybrid_register": _walls_ms(lambda: hyb.register(local, identity), TIMING_RUNS),
         "register_ndt": _walls_ms(
-            lambda: port.register_ndt(nat_map, local, identity, minimizer, opts), 20),
-        "ndt_registrar_register": _walls_ms(lambda: reg.register(local, identity), 20),
+            lambda: port.register_ndt(nat_map, local, identity, minimizer, opts), TIMING_RUNS),
+        "ndt_registrar_register": _walls_ms(lambda: reg.register(local, identity), TIMING_RUNS),
     }
 
     # the planar variant through maha3
@@ -3206,7 +3352,7 @@ def _hybrid_registrar(dev, name: str, smi: str, nat_map, nat_scan, true_pose,
         final_cost=res.final_cost,
         kernel_vs_plain_max_abs_err=err.max().item(), rtol_of_abs_sum=RTOL, atol=ATOL,
         walls_median_ms={k: statistics.median(v) for k, v in walls.items()},
-        walls_min_ms={k: min(v) for k, v in walls.items()}, runs=20,
+        walls_min_ms={k: min(v) for k, v in walls.items()}, runs=TIMING_RUNS,
         outer_iteration_split_ms={"match_and_pack": match_ms, "upload": upload_ms,
                                   "lm_solve": lm_ms, "lm_iterations": int(res.inner_iterations[0]),
                                   "match_threads": os.cpu_count()},
@@ -3375,6 +3521,7 @@ EXAMPLES = {
     "incremental_mapping": ([], "scan-to-map   error:"),
     "multi_robot_map_merge": ([], "planted false-rendezvous switch:"),
     "bal_solve": ([], "final cost"),
+    "gps_ins": ([], "online (lag=6) max error"),
 }
 
 
@@ -3930,6 +4077,399 @@ def _pose_landmark(dev, name: str, smi: str) -> None:
          worlds_build_s=worlds_s, plateau_rtol={"3d_2d": LANDMARK_RTOL, "city": 1e-6},
          caps={"3d_2d": 60, "city": 30}, cases=rows, checks_3d=checks, tol=LANDMARK_TOL,
          port_kernel_launches=0, device=name, nvidia_smi=smi)
+
+
+# ---- the inertial stack and the Sim(3) essential graph ----------------------
+
+# benchmarks/run_all.py's GPS-INS stream (:1958-2040): a circle of radius
+# 3 m at 0.6 rad/s with a 0.7 rad, 1.3 rad/s yaw sinusoid, 200 Hz IMU,
+# keyframes every 0.5 s, constant gyro and accel biases, 5 cm GPS fixes
+GPS_INS_KEYFRAMES = 500  # the batch: 8,000 unknowns (H 512 MB in float64)
+GPS_INS_SMOOTHER_KEYFRAMES = 200  # the online smoother's stream
+GPS_INS_CPU_KEYFRAMES = 41  # run_all.py's size, card against the CPU port
+INERTIAL_CPU_TOL = 1e-9
+# run_all.py's Sim(3) essential graph (:2171-2269) and the scipy TRF
+# optimum it quotes for the float64 polish
+SIM3_KEYFRAMES = 200
+SIM3_SCIPY_OPTIMUM = 1.58005e-2
+SIM3_CHAIN_KEYFRAMES = 2000  # auto picks sparse above 600
+SIM3_CPU_TOL = 1e-8
+
+
+def _gps_ins_stream(n_kf: int, seed: int = 0) -> dict:
+    """run_all.py's GPS-INS construction at ``n_kf`` keyframes: the
+    preintegrated IMU intervals (biased, noisy) and the GPS fixes, from one
+    seed, on the host."""
+    from nonlinear_optimizer_for_slam_tpu_torch.ops.imu import GRAVITY, ImuParams, ImuPreintegrator
+
+    rho, omega, yaw_amp, yaw_freq = 3.0, 0.6, 0.7, 1.3
+    kf_dt, imu_dt = 0.5, 0.005
+    bg = np.array([2e-3, -1e-3, 3e-3])
+    ba = np.array([2e-2, -1e-2, 1e-2])
+    params = ImuParams(gyro_noise=1e-4, accel_noise=1e-3)
+    rng = np.random.default_rng(seed)
+    sg = params.gyro_noise / np.sqrt(imu_dt)
+    sa = params.accel_noise / np.sqrt(imu_dt)
+    pos = lambda t: rho * np.array([np.cos(omega * t), np.sin(omega * t), 0.0])
+    vel = lambda t: rho * omega * np.array([-np.sin(omega * t), np.cos(omega * t), 0.0])
+    acc = lambda t: -rho * omega**2 * np.array([np.cos(omega * t), np.sin(omega * t), 0.0])
+
+    def rot(t):
+        th = omega * t + np.pi / 2 + yaw_amp * np.sin(yaw_freq * t)
+        c, s = np.cos(th), np.sin(th)
+        return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+    gyro = lambda t: np.array([0.0, 0.0, omega + yaw_amp * yaw_freq * np.cos(yaw_freq * t)])
+    pres, gps = [], []
+    for k in range(n_kf - 1):
+        pre = ImuPreintegrator(params)
+        t = k * kf_dt
+        while t < (k + 1) * kf_dt - 1e-9:
+            tm = t + 0.5 * imu_dt
+            pre.integrate(gyro(tm) + bg + rng.normal(0, sg, 3),
+                          rot(tm).T @ (acc(tm) - GRAVITY) + ba + rng.normal(0, sa, 3), imu_dt)
+            t += imu_dt
+        pres.append(pre)
+    for k in range(n_kf):
+        gps.append(pos(k * kf_dt) + rng.normal(0, 0.05, 3))
+    return dict(pres=pres, gps=gps, pos=pos, vel=vel, rot=rot, kf_dt=kf_dt, bg=bg, ba=ba,
+                params=params, gravity=GRAVITY)
+
+
+def _predict(stream, R, p, v, pre):
+    """Dead reckoning of one interval at zero bias."""
+    g = stream["gravity"]
+    dR, dv, dp = pre.corrected(np.zeros(3), np.zeros(3))
+    return R @ dR, p + v * pre.dt + 0.5 * g * pre.dt**2 + R @ dp, v + g * pre.dt + R @ dv
+
+
+def _gps_ins_problem(stream, n_kf: int, dev, warm_start: bool = False):
+    """An ``InertialGraphOptimizer`` (float64) over the stream's first
+    ``n_kf`` keyframes: the pose of state 0 fixed at the truth, GPS priors,
+    IMU factors, bias walks from ``bias_walk_sqrt_info`` and a weak zero
+    bias prior. The states start dead-reckoned from the true first one
+    (run_all.py's start), or with ``warm_start`` at a forward filter's
+    level: the GPS fixes, the true velocities and attitudes perturbed by
+    5 cm/s and 2 degrees (seeded), zero biases. Dead reckoning over
+    hundreds of seconds leaves LM's basin."""
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.core.pose import np_axis_angle_to_quat, np_quat_to_rotmat
+    from nonlinear_optimizer_for_slam_tpu_torch.ops.imu import bias_walk_sqrt_info
+
+    opt = port.InertialGraphOptimizer(device=dev)
+    kf_dt = stream["kf_dt"]
+    R, p, v = stream["rot"](0.0), stream["pos"](0.0), stream["vel"](0.0)
+    opt.add_state(0, port.Pose(R, p), velocity=v)
+    rng = np.random.default_rng(5)
+    for k, pre in enumerate(stream["pres"][: n_kf - 1]):
+        if warm_start:
+            t = (k + 1) * kf_dt
+            dR = np_quat_to_rotmat(np_axis_angle_to_quat(rng.normal(0, np.deg2rad(2.0), 3)))
+            R, p, v = stream["rot"](t) @ dR, stream["gps"][k + 1], stream["vel"](t) + rng.normal(0, 0.05, 3)
+        else:
+            R, p, v = _predict(stream, R, p, v, pre)
+        opt.add_state(k + 1, port.Pose(R, p), velocity=v)
+        opt.add_imu_factor(k, k + 1, pre)
+        opt.add_bias_walk(k, k + 1, bias_walk_sqrt_info(stream["params"], pre.dt))
+    opt.set_state_constant(0)
+    for k in range(n_kf):
+        opt.add_position_prior(k, stream["gps"][k], 20.0)
+    opt.add_bias_prior(0, np.zeros(6), 10.0)
+    return opt
+
+
+def _inertial_states(opt) -> np.ndarray:
+    return np.stack([np.concatenate([s[0].translation, s[0].quaternion(), s[1], s[2]])
+                     for s in (opt.get_state(k) for k in range(opt.num_states))])
+
+
+def _gps_ins_batch(dev, name: str, smi: str, stream) -> None:
+    """``InertialGraphOptimizer`` in float64 over GPS_INS_KEYFRAMES of the
+    stream (the dense 16N normal equations on the card): wall, LM
+    iterations, kernels and idle share an iteration from a profiled solve,
+    position errors and the recovered biases; at run_all.py's 41 keyframes
+    the card's solve against the CPU port's (counts equal, states within
+    INERTIAL_CPU_TOL). No port kernel runs."""
+    import torch
+
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_launches()
+    options = _plateau(100, 1e-5)  # run_all.py's plateau options for this row
+    n = GPS_INS_KEYFRAMES
+    t0 = time.perf_counter()
+    _gps_ins_problem(stream, n, dev, warm_start=True).solve(_plateau(2, 1e-5))  # warm-up
+    warm_s = time.perf_counter() - t0
+    opt = _gps_ins_problem(stream, n, dev, warm_start=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary = opt.solve(options)
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_eval = int(np.sum(~np.isnan(summary.records.cost)))
+    kf_dt = stream["kf_dt"]
+    errs = [float(np.linalg.norm(opt.get_pose(k).translation - stream["pos"](k * kf_dt)))
+            for k in range(n)]
+    _, v_mid, b_mid = opt.get_state(n // 2)
+    prof = _profile(lambda: _gps_ins_problem(stream, n, dev, warm_start=True).solve(
+        _plateau(3, 1e-5)), warm=False)
+    # the card against the CPU port at run_all.py's size
+    small = GPS_INS_CPU_KEYFRAMES
+    card = _gps_ins_problem(stream, small, dev)
+    s_card = card.solve(options)
+    cpu = _gps_ins_problem(stream, small, "cpu")
+    s_cpu = cpu.solve(options)
+    cpu_diff = float(np.abs(_inertial_states(card) - _inertial_states(cpu)).max())
+    _no_port_kernels("gps_ins_batch")
+    row = dict(
+        keyframes=n, unknowns=16 * n, imu_rate_hz=200, warm_up_s=warm_s, wall_ms=wall,
+        lm_iterations=int(summary.iterations), lm_evaluations=n_eval,
+        ms_per_lm_iteration=wall / n_eval, converged=bool(summary.converged),
+        initial_cost=float(summary.records.cost[0]), final_cost=float(summary.final_cost),
+        peak_memory_gb=peak, max_position_err_m=max(errs), mean_position_err_m=float(np.mean(errs)),
+        gyro_bias=b_mid[:3].tolist(), accel_bias=b_mid[3:].tolist(),
+        gyro_bias_true=stream["bg"].tolist(), accel_bias_true=stream["ba"].tolist(),
+        velocity_err=float(np.linalg.norm(v_mid - stream["vel"]((n // 2) * kf_dt))),
+        profiled_lm_evaluations=3,
+        device_kernels_per_lm_iteration=prof["device_kernels"] / 3,
+        device_busy_ms=prof["device_busy_ms"], device_idle_share=prof["device_idle_share"],
+        profiled_wall_ms=prof["wall_ms"], top_device=prof["top_device"][:5],
+    )
+    card_vs_cpu = dict(keyframes=small, lm_iterations=[int(s_card.iterations), int(s_cpu.iterations)],
+                       state_max_diff=cpu_diff, tol=INERTIAL_CPU_TOL)
+    if not (np.isfinite(row["final_cost"]) and row["final_cost"] < row["initial_cost"]
+            and max(errs) < 0.5):
+        raise AssertionError(f"gps_ins_batch: {row}")
+    if int(s_card.iterations) != int(s_cpu.iterations) or cpu_diff > INERTIAL_CPU_TOL:
+        raise AssertionError(f"gps_ins_batch: card vs CPU {card_vs_cpu}")
+    emit("gps_ins_batch", batch=row, card_vs_cpu=card_vs_cpu, dtype="float64",
+         port_kernel_launches=0, device=name, nvidia_smi=smi)
+
+
+def _inertial_smoother(dev, name: str, smi: str, stream) -> None:
+    """``FixedLagInertialSmoother(lag=10)`` over the stream's first
+    GPS_INS_SMOOTHER_KEYFRAMES, blocking and ``update_async`` with
+    ``marginalize_every=4`` (run_all.py:2069-2119's two modes): ms a
+    keyframe, LM iterations an update, position errors. Each keyframe is
+    predicted from the last smoothed state in the blocking run; the
+    streaming run takes the same predictions (a read would flush). No port
+    kernel runs."""
+    import torch
+
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+    from nonlinear_optimizer_for_slam_tpu_torch.ops.imu import bias_walk_sqrt_info
+
+    ck.reset_launches()
+    kf_dt = stream["kf_dt"]
+    rows = {}
+    predictions = []  # the blocking run's (R, p, v) of each new keyframe
+    for mode, me in (("blocking", 1), ("async_every4", 4)):
+        sm = port.FixedLagInertialSmoother(lag=10, marginalize_every=me, device=dev)
+        R, p, v = stream["rot"](0.0), stream["pos"](0.0), stream["vel"](0.0)
+        sm.add_state(0, port.Pose(R, p), velocity=v)
+        sm.add_position_prior(0, stream["gps"][0], 20.0)
+        sm.add_bias_prior(0, np.zeros(6), 10.0)
+        sm.update()
+        per, iters = [], []
+        t_all = time.perf_counter()
+        for k, pre in enumerate(stream["pres"][: GPS_INS_SMOOTHER_KEYFRAMES - 1]):
+            if me == 1:
+                # predicted from the smoothed state of the last update
+                R, p, v = _predict(stream, R, p, v, pre)
+                predictions.append((R, p, v))
+            else:
+                # the same predictions: a read would flush every frame
+                R, p, v = predictions[k]
+            t0 = time.perf_counter()
+            sm.add_state(k + 1, port.Pose(R, p), velocity=v)
+            sm.add_imu_factor(k, k + 1, pre)
+            sm.add_bias_walk(k, k + 1, bias_walk_sqrt_info(stream["params"], pre.dt))
+            sm.add_position_prior(k + 1, stream["gps"][k + 1], 20.0)
+            if me == 1:
+                sm.update()
+                torch.cuda.synchronize()
+                per.append((time.perf_counter() - t0) * 1e3)
+                iters.append(int(sm.last_summary.iterations))
+                pose_k, v, _ = sm.get_state(k + 1)
+                R, p = pose_k.rotation, pose_k.translation
+            else:
+                sm.update_async()
+                torch.cuda.synchronize()
+                per.append((time.perf_counter() - t0) * 1e3)
+        sm.flush()
+        total_s = time.perf_counter() - t_all
+        errs = [float(np.linalg.norm(sm.get_pose(k).translation - stream["pos"](k * kf_dt)))
+                for k in sm.window]
+        rows[mode] = dict(
+            marginalize_every=me, keyframes=GPS_INS_SMOOTHER_KEYFRAMES, lag=10,
+            ms_per_keyframe_median=statistics.median(per[15:]),
+            ms_per_keyframe_mean=float(np.mean(per)), total_s=total_s,
+            lm_iterations_per_update=float(np.mean(iters)) if iters else None,
+            window=sm.window, window_max_position_err_m=max(errs),
+        )
+        if not all(np.isfinite(e) for e in errs):
+            raise AssertionError(f"inertial_smoother {mode}: {rows[mode]}")
+    _no_port_kernels("inertial_smoother")
+    if rows["blocking"]["window_max_position_err_m"] > 0.5:
+        raise AssertionError(f"inertial_smoother: {rows}")
+    emit("inertial_smoother", modes=rows, dtype="float64", port_kernel_launches=0,
+         device=name, nvidia_smi=smi)
+
+
+def _sim3_between(a, b):
+    from nonlinear_optimizer_for_slam_tpu_torch.core.lie import np_quat_multiply
+    from nonlinear_optimizer_for_slam_tpu_torch.core.pose import np_quat_to_rotmat
+
+    Ra = np_quat_to_rotmat(a[3:7] / np.linalg.norm(a[3:7]))
+    dt_ = Ra.T @ (b[:3] - a[:3]) / np.exp(a[7])
+    dq = np_quat_multiply(a[3:7] * np.array([1.0, -1, -1, -1]), b[3:7])
+    return np.concatenate([dt_, dq / np.linalg.norm(dq), [b[7] - a[7]]])
+
+
+def _sim3_graph(P: int, drift: float, radius: float, loops, seed: int):
+    """run_all.py's Sim(3) construction: keyframes on a circle with the
+    log-scale -k ln(drift), noisy similarity odometry (5 mm, 2 mrad, 2e-3 in
+    log-scale), the naive rigid dead reckoning as the start, and loop
+    closures ``loops`` (pairs) with the same noise. Returns (registry
+    arguments, target states)."""
+    from nonlinear_optimizer_for_slam_tpu_torch.core.lie import np_quat_multiply
+    from nonlinear_optimizer_for_slam_tpu_torch.core.pose import np_quat_to_rotmat
+
+    target = []
+    for k in range(P):
+        q = np.array([np.cos(np.pi * k / P), 0, 0, np.sin(np.pi * k / P)])
+        target.append(np.concatenate(
+            [[radius * np.cos(2 * np.pi * k / P), radius * np.sin(2 * np.pi * k / P), 0.0], q,
+             [-k * np.log(drift)]]))
+    rng = np.random.default_rng(seed)
+
+    def noisy(m):
+        dq = np.concatenate([[1.0], rng.normal(0, 2e-3, 3)])
+        q = np_quat_multiply(m[3:7], dq / np.linalg.norm(dq))
+        return np.concatenate([m[:3] + rng.normal(0, 5e-3, 3), q, [m[7] + rng.normal(0, 2e-3)]])
+
+    meas = [noisy(_sim3_between(target[k], target[k + 1])) for k in range(P - 1)]
+    closures = [(a, b, noisy(_sim3_between(target[a], target[b]))) for a, b in loops]
+    rot = lambda x: np_quat_to_rotmat(x[3:7] / np.linalg.norm(x[3:7]))
+    init = [target[0].copy()]
+    for m in meas:
+        prev = init[-1]
+        init.append(np.concatenate(
+            [prev[:3] + rot(prev) @ m[:3], np_quat_multiply(prev[3:7], m[3:7]), [0.0]]))
+    return dict(init=init, meas=meas, closures=closures, rot=rot), target
+
+
+def _sim3_optimizer(graph, dev, **kw):
+    import nonlinear_optimizer_for_slam_tpu_torch as port
+
+    rot = graph["rot"]
+    opt = port.Sim3GraphOptimizer(device=dev, **kw)
+    for k, x in enumerate(graph["init"]):
+        opt.set_pose(k, port.Pose(rot(x), x[:3]), scale=1.0)
+    opt.set_pose_constant(0)
+    for k, m in enumerate(graph["meas"]):
+        opt.set_constraint(k, k + 1, port.Pose(rot(m), m[:3]),
+                           relative_scale=float(np.exp(m[7])), sqrt_info=(10.0, 20.0, 1.0))
+    for a, b, m in graph["closures"]:
+        opt.set_constraint(a, b, port.Pose(rot(m), m[:3]),
+                           relative_scale=float(np.exp(m[7])), sqrt_info=(50.0, 100.0, 50.0))
+    return opt
+
+
+def _sim3_vs_cpu(graph, card_opt, card_summary, **kw) -> dict:
+    """The same initialize() and default solve on the CPU port: LM counts
+    equal and every pose and log-scale within SIM3_CPU_TOL, or a raise."""
+    cpu = _sim3_optimizer(graph, "cpu", **kw)
+    cpu.initialize()
+    s_cpu = cpu.solve()
+    states = lambda o: np.stack([o._poses[k] for k in sorted(o._poses)])
+    diff = float(np.abs(states(card_opt) - states(cpu)).max())
+    out = dict(lm_iterations=[int(card_summary.iterations), int(s_cpu.iterations)],
+               state_max_diff=diff, tol=SIM3_CPU_TOL)
+    if int(card_summary.iterations) != int(s_cpu.iterations) or diff > SIM3_CPU_TOL:
+        raise AssertionError(f"sim3: card vs CPU port {out}")
+    return out
+
+
+def _sim3(dev, name: str, smi: str) -> None:
+    """The Sim(3) essential graph: run_all.py's 200 keyframes with 2 %/edge
+    (52x) monocular scale drift and one loop, through ``initialize()`` and
+    the dense solve with the default schedule, in float32 with
+    ``polish="auto"`` (the float64 polish on the card) and in float64 (final
+    cost against the scipy optimum SIM3_SCIPY_OPTIMUM, rtol 1e-3; float64
+    against the CPU port: counts equal, states within SIM3_CPU_TOL); then a
+    SIM3_CHAIN_KEYFRAMES drifting chain (0.2 %/edge, 54x) on a 40 m circle
+    with 40 loop closures (the closing one, 20 chords a third of the way
+    round, one back half a stride every 100 keyframes) through
+    ``solver="auto"`` (sparse), float64, against the CPU port likewise. No
+    port kernel runs."""
+    import torch
+
+    from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_launches()
+    graph, target = _sim3_graph(SIM3_KEYFRAMES, 1.02, 6.0, [(SIM3_KEYFRAMES - 1, 0)], seed=77)
+    rows = {}
+    for label, dtype in (("float32_polish_auto", torch.float32), ("float64", torch.float64)):
+        def solve():
+            opt = _sim3_optimizer(graph, dev, dtype=dtype)
+            t0 = time.perf_counter()
+            opt.initialize()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            summary = opt.solve()
+            return opt, summary, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+        solve()  # warm-up
+        opt, summary, init_ms, solve_ms = solve()
+        err = max(float(np.linalg.norm(opt.get_pose(k).translation - target[k][:3]))
+                  for k in range(SIM3_KEYFRAMES))
+        rows[label] = dict(
+            initialize_ms=init_ms, solve_ms=solve_ms, lm_iterations=int(summary.iterations),
+            converged=bool(summary.converged), final_cost=float(summary.final_cost),
+            cost_vs_scipy_rel=float(summary.final_cost) / SIM3_SCIPY_OPTIMUM - 1.0,
+            max_position_err_m=err, solver=opt.last_solver_choice,
+        )
+        if opt.last_solver_choice != "dense" or abs(rows[label]["cost_vs_scipy_rel"]) > 1e-3:
+            raise AssertionError(f"sim3 {label}: {rows[label]}")
+    rows["float64"]["vs_cpu_port"] = _sim3_vs_cpu(graph, opt, summary)
+    P = SIM3_CHAIN_KEYFRAMES
+    loops = ([(P - 1, 0)]
+             + [(a, a + P // 3) for a in np.linspace(3, P - P // 3 - 3, 20).astype(int)]
+             + [(a, a - 50) for a in range(100, P, 100)])
+    chain, chain_target = _sim3_graph(P, 1.002, 40.0, loops, seed=78)
+
+    def chain_solve():
+        opt = _sim3_optimizer(chain, dev, solver="auto")
+        t0 = time.perf_counter()
+        opt.initialize()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        summary = opt.solve()
+        return opt, summary, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    chain_solve()  # warm-up (the symbolic plan is per optimizer)
+    opt, summary, init_ms, solve_ms = chain_solve()
+    n_eval = int(np.sum(~np.isnan(summary.records.cost)))
+    rec = summary.records.cost
+    chain_row = dict(
+        keyframes=P, edges=P - 1 + len(loops), loops=len(loops), drift_per_edge=1.002,
+        solver=opt.last_solver_choice, initialize_ms=init_ms, solve_ms=solve_ms,
+        lm_iterations=int(summary.iterations), converged=bool(summary.converged),
+        first_cost=float(rec[0]), final_cost=float(summary.final_cost),
+        ms_per_lm_iteration=solve_ms / n_eval,
+        max_position_err_m=max(float(np.linalg.norm(opt.get_pose(k).translation
+                                                    - chain_target[k][:3])) for k in range(P)),
+    )
+    if opt.last_solver_choice != "sparse" or not chain_row["final_cost"] <= chain_row["first_cost"]:
+        raise AssertionError(f"sim3 chain: {chain_row}")
+    chain_row["vs_cpu_port"] = _sim3_vs_cpu(chain, opt, summary, solver="auto")
+    _no_port_kernels("sim3")
+    emit("sim3", essential_graph=dict(keyframes=SIM3_KEYFRAMES, drift_per_edge=1.02,
+                                      scipy_optimum=SIM3_SCIPY_OPTIMUM, cases=rows),
+         chain=chain_row, port_kernel_launches=0, device=name, nvidia_smi=smi)
 
 
 def _evaluations(summaries) -> int:

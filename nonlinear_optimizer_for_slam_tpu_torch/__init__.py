@@ -36,7 +36,16 @@ marginal covariances, g2o landmark records) run in plain PyTorch ops too.
 map builder, the voxel filter and the matcher that writes the maha6
 buffer), built with g++ at first use; ``HybridRegistrar`` matches with it
 on the host and solves on the card. ``FixedLagSmoother`` is the online
-sliding-window pose-graph smoother. ``examples`` holds the user-facing
+sliding-window pose-graph smoother. The inertial stack (``ops.imu``'s
+preintegration, ``InertialGraphOptimizer`` for GPS-INS smoothing and
+``FixedLagInertialSmoother`` for online inertial odometry) and the Sim(3)
+essential graph of monocular SLAM (``Sim3GraphOptimizer``: dense and
+sparse, with its float64 polish on the device) run in plain PyTorch ops.
+With them the port covers the JAX package module for module. A
+``bfloat16`` storage of the packed maha rows
+(``cuda_kernels.pack_maha6(..., buffer_dtype=torch.bfloat16)``) is read by
+its own instantiations of the maha6 and maha3 kernels, with float32
+arithmetic. ``examples`` holds the user-facing
 examples, each run as ``python -m
 nonlinear_optimizer_for_slam_tpu_torch.examples.<name>``.
 """
@@ -52,6 +61,7 @@ from .core import (
     MinimizerType,
     Options,
     Pose,
+    Pose2,
     TrivialLoss,
     TukeyLoss,
 )
@@ -74,9 +84,12 @@ from .pipelines import (
     register_point_to_plane,
 )
 from .solvers import (
+    BAData,
     BundleAdjuster,
     ConstraintType,
+    FixedLagInertialSmoother,
     FixedLagSmoother,
+    InertialGraphOptimizer,
     MahalanobisDistanceMinimizer,
     MahalanobisDistanceMinimizer3DOF,
     PointToPlaneMinimizer,
@@ -85,6 +98,7 @@ from .solvers import (
     PoseLandmark2DOptimizer,
     PoseLandmarkOptimizer,
     ReprojectionErrorMinimizer,
+    Sim3GraphOptimizer,
     Summary,
     finalize_solve_batch,
     solve_mahalanobis_batch,
@@ -93,6 +107,7 @@ from .solvers import (
     solve_point_to_plane_batch_async,
     solve_reprojection_batch,
     solve_reprojection_batch_async,
+    sqrt_info_from_information,
 )
 
 __version__ = "0.1.0"

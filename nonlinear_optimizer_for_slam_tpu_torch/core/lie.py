@@ -1,7 +1,7 @@
-"""Quaternion math for SE(3) pose manipulation, and the SE(2) rotation of
-the planar solvers (PyTorch port of the JAX package's ``core/lie.py`` but
-for the two IMU Jacobians), and numpy twins of the quaternion product for
-host-side algebra.
+"""Quaternion math for SE(3) pose manipulation, with the branch-exact
+Jacobians of Exp and Log that the IMU factor uses, and the SE(2) rotation
+of the planar solvers (PyTorch port of the JAX package's ``core/lie.py``),
+and numpy twins of the quaternion product for host-side algebra.
 
 All functions are dtype-polymorphic, batched over leading dims and
 branch-free (small-angle branches become ``torch.where`` masks).
@@ -73,6 +73,63 @@ def quat_log_vec(q: Tensor) -> Tensor:
         small, 2.0 / torch.clamp(q[..., :1], min=1e-12), theta / safe_vn
     )
     return scale * vec
+
+
+def so3_exp_quaternion_jacobian(w: Tensor) -> Tensor:
+    """d so3_exp_quaternion / dw: (..., 4, 3), branch for branch the
+    derivative of :func:`so3_exp_quaternion` (small-angle branch included:
+    d(1, w/2)/dw = [0; I/2]). Feeds the closed-form IMU-factor Jacobians
+    (``ops/imu.py``)."""
+    theta_sq = torch.sum(w * w, dim=-1, keepdim=True)
+    theta = torch.sqrt(theta_sq)
+    small = theta < _SMALL_ANGLE
+    safe_theta = torch.where(small, torch.ones_like(theta), theta)
+    half = 0.5 * safe_theta
+    sin_half = torch.sin(half)
+    u_hat = w / safe_theta  # (..., 3)
+    # d qw / dw = -0.5 sin(theta/2) u_hat^T   (0 in the small branch)
+    d_qw = torch.where(small, torch.zeros_like(w), -0.5 * sin_half * u_hat)
+    # vec = s(theta) w, s = sin(theta/2)/theta:
+    # d vec / dw = s I + s'(theta) w u_hat^T
+    s = sin_half / safe_theta
+    s_prime = 0.5 * torch.cos(half) / safe_theta - sin_half / (safe_theta**2)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    d_vec_large = s[..., None] * eye + s_prime[..., None] * (
+        w[..., :, None] * u_hat[..., None, :]
+    )
+    d_vec = torch.where(small[..., None], 0.5 * eye, d_vec_large)
+    return torch.cat([d_qw[..., None, :], d_vec], dim=-2)
+
+
+def quat_log_vec_jacobian(q: Tensor) -> Tensor:
+    """d quat_log_vec / dq: (..., 3, 4), branch for branch the derivative
+    of :func:`quat_log_vec` including the shortest-arc sign flip (the flip
+    chains a global factor sign(qw); its switch point qw = 0 is pi
+    rotations, where Log itself is discontinuous)."""
+    one = torch.ones_like(q[..., :1])
+    sign = torch.where(q[..., :1] < 0, -one, one)
+    qs = sign * q
+    w = qs[..., :1]
+    vec = qs[..., 1:]
+    vn_sq = torch.sum(vec * vec, dim=-1, keepdim=True)
+    vn = torch.sqrt(vn_sq)
+    small = vn < _SMALL_ANGLE
+    safe_vn = torch.where(small, torch.ones_like(vn), vn)
+    safe_w = torch.clamp(w, min=1e-12)
+    nrm_sq = w * w + vn_sq
+    theta = 2.0 * torch.atan2(vn, w)
+    v_hat = vec / safe_vn
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    # d f / d w = -2 vec / (w^2 + vn^2)      (small: -2 vec / w^2)
+    d_w = torch.where(small, -2.0 * vec / safe_w**2, -2.0 * vec / nrm_sq)
+    # d f / d vec = (theta/vn)(I - vh vh^T) + (2w/(w^2+vn^2)) vh vh^T
+    # (small: 2/w I, the derivative of 2 vec / w)
+    vvT = v_hat[..., :, None] * v_hat[..., None, :]
+    d_v_large = (theta / safe_vn)[..., None] * (eye - vvT) + (
+        2.0 * w / nrm_sq
+    )[..., None] * vvT
+    d_v = torch.where(small[..., None], (2.0 / safe_w)[..., None] * eye, d_v_large)
+    return sign[..., None] * torch.cat([d_w[..., :, None], d_v], dim=-1)
 
 
 def quat_multiply(a: Tensor, b: Tensor) -> Tensor:

@@ -29,6 +29,8 @@
 //   operations. The design streams aligned vector loads from as many
 //   persistent blocks as the card holds, each loading its next tile while
 //   it reduces the current one.
+// - The bf16-row instantiation halves the bytes (32 B a factor: 9.6 us of
+//   bytes at N = 1,000,003, still above its 4.7 us of operations).
 #include "onepass.cuh"
 
 namespace {
@@ -43,6 +45,13 @@ struct Maha6 {
   }
 };
 
+// The same factor over bf16 rows (pack_maha6(..., buffer_dtype=bfloat16),
+// the TPU kernel's bf16-storage option, pallas_kernels.py:285-304): bf16
+// loads, float32 arithmetic.
+struct Maha6Bf16 : Maha6 {
+  using Elem = __nv_bfloat16;
+};
+
 }  // namespace
 
 extern "C" {
@@ -55,6 +64,14 @@ int nls_maha6_launch(int device, const float* params, const float* packed, int b
                      float* out, void* stream) {
   return nls::onepass::launch<Maha6>(device, params, packed, batch, n, ld, loss_code, workspace,
                                      counters, out, stream);
+}
+
+// The same over bf16 rows: packed (batch, 16, ld) bf16, ld % 8 == 0.
+int nls_maha6_bf16_launch(int device, const float* params, const void* packed, int batch,
+                          int64_t n, int64_t ld, int loss_code, float* workspace,
+                          unsigned int* counters, float* out, void* stream) {
+  return nls::onepass::launch<Maha6Bf16>(device, params, packed, batch, n, ld, loss_code,
+                                         workspace, counters, out, stream);
 }
 
 // An empty kernel through the same ctypes path: the launch floor.

@@ -13,7 +13,13 @@
 // so a thread's lanes of a row are one aligned vector load. Lanes past N are
 // never added: the one
 // vector that straddles N is read whole (it lies inside the row, since
-// ld >= round_up(N, 4)) and its lanes >= N skipped.
+// ld >= round_up(N, 4)) and its lanes >= N skipped. A factor that names
+// Elem = __nv_bfloat16 (maha6's and maha3's bf16-row instantiations) reads
+// bf16 rows instead, ld a multiple of 8 (16-byte rows again): a thread's
+// 2 lanes of a row are one 4-byte __nv_bfloat162 load, widened by
+// __bfloat1622float2. Everything after the load, the order of summation
+// included, is the float32 rows', so bf16 rows give the bits of the float32
+// kernel on the same rows widened to float32.
 //
 // The order of the sum, which fixes every bit of the result, depends on the
 // lane index alone:
@@ -97,9 +103,11 @@
 
 #ifdef __CUDACC__
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <type_traits>
 #endif
 
 namespace nls {
@@ -185,22 +193,53 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[kWidth], int lane) {
   return s;
 }
 
-// A thread's 2 lanes of one row: one 8-byte load.
-using Vec = float2;
-static_assert(sizeof(Vec) == kLanesPerThread * sizeof(float), "one load a row");
+// The storage type of a factor's packed rows: Factor::Elem where the
+// factor names one (the bf16-row instantiations of maha6 and maha3), float
+// otherwise. The arithmetic is float32 either way.
+template <class Factor, class = void>
+struct ElemOf {
+  using type = float;
+};
+template <class Factor>
+struct ElemOf<Factor, std::void_t<typename Factor::Elem>> {
+  using type = typename Factor::Elem;
+};
 
-__device__ __forceinline__ float lane_of(const Vec& v, int j) { return j == 0 ? v.x : v.y; }
+// A thread's 2 lanes of one row: one load, 8 bytes of float32 or 4 of
+// bf16, widened to a float2 where the lanes are read.
+template <class Elem>
+struct Lanes;
+template <>
+struct Lanes<float> {
+  using Vec = float2;
+  static __device__ __forceinline__ float2 widen(const float2& v) { return v; }
+};
+template <>
+struct Lanes<__nv_bfloat16> {
+  using Vec = __nv_bfloat162;
+  static __device__ __forceinline__ float2 widen(const __nv_bfloat162& v) {
+    return __bfloat1622float2(v);
+  }
+};
+template <class Factor>
+using VecOf = typename Lanes<typename ElemOf<Factor>::type>::Vec;
+static_assert(sizeof(Lanes<float>::Vec) == kLanesPerThread * sizeof(float), "one load a row");
+static_assert(sizeof(Lanes<__nv_bfloat16>::Vec) == kLanesPerThread * sizeof(__nv_bfloat16),
+              "one load a row");
+
+__device__ __forceinline__ float lane_of(const float2& v, int j) { return j == 0 ? v.x : v.y; }
 
 // Adds the first m of a thread's kLanesPerThread lanes, in index order.
 template <class Factor, int kLoss, int kWidth>
-__device__ __forceinline__ void add_lanes(const float* prm, const Vec (&v)[Factor::kRows],
+__device__ __forceinline__ void add_lanes(const float* prm, const VecOf<Factor> (&v)[Factor::kRows],
                                           int64_t m, float (&acc)[kWidth]) {
+  using L = Lanes<typename ElemOf<Factor>::type>;
 #pragma unroll
   for (int j = 0; j < kLanesPerThread; ++j) {
     if (j < m) {
       float f[Factor::kRows];
 #pragma unroll
-      for (int r = 0; r < Factor::kRows; ++r) f[r] = lane_of(v[r], j);
+      for (int r = 0; r < Factor::kRows; ++r) f[r] = lane_of(L::widen(v[r]), j);
       Factor::template accumulate<kLoss>(prm, f, acc);
     }
   }
@@ -282,8 +321,8 @@ __device__ __forceinline__ void finish_if_last(const float* partials, int64_t ti
 }
 
 // A thread's loads of its lanes of one tile: one vector a row.
-template <int kRows>
-__device__ __forceinline__ void load_tile(Vec (&v)[kRows], const float* base, int64_t ld,
+template <int kRows, class Elem, class Vec>
+__device__ __forceinline__ void load_tile(Vec (&v)[kRows], const Elem* base, int64_t ld,
                                           int64_t tile, int64_t lane0) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -296,8 +335,9 @@ __device__ __forceinline__ void load_tile(Vec (&v)[kRows], const float* base, in
 // (B,) zero on entry and on exit, out (B, kOut).
 template <class Factor, int kLoss>
 __global__ void __launch_bounds__(kThreads)
-    onepass_kernel(const float* __restrict__ params, const float* __restrict__ packed,
-                   int64_t n, int64_t ld, float* __restrict__ tile_partials,
+    onepass_kernel(const float* __restrict__ params,
+                   const typename ElemOf<Factor>::type* __restrict__ packed, int64_t n,
+                   int64_t ld, float* __restrict__ tile_partials,
                    unsigned int* __restrict__ counters, float* __restrict__ out) {
   constexpr int kRows = Factor::kRows;
   constexpr int kParams = Factor::kParams;
@@ -310,12 +350,12 @@ __global__ void __launch_bounds__(kThreads)
 
   const int b = blockIdx.y;
   const int64_t tiles = num_tiles(n);
-  const float* base = packed + static_cast<int64_t>(b) * kRows * ld;
+  const auto* base = packed + static_cast<int64_t>(b) * kRows * ld;
   float* partials = tile_partials + static_cast<int64_t>(b) * kOut * tiles;
   const int64_t lane0 = kLanesPerThread * static_cast<int64_t>(threadIdx.x);
 
   // The first tile's loads go out before the wait for the params.
-  Vec v[kRows];
+  VecOf<Factor> v[kRows];
   int64_t tile = blockIdx.x;
   if (tile < tiles && tile * kTile + lane0 < n) load_tile<kRows>(v, base, ld, tile, lane0);
   if (threadIdx.x < kParams) prm[threadIdx.x] = params[b * kParams + threadIdx.x];
@@ -352,8 +392,9 @@ __device__ __forceinline__ void cluster_wait() {
 // and out as for onepass_kernel.
 template <class Factor, int kLoss>
 __global__ void __launch_bounds__(kThreads)
-    onepass_cluster_kernel(const float* __restrict__ params, const float* __restrict__ packed,
-                           int64_t n, int64_t ld, float* __restrict__ out) {
+    onepass_cluster_kernel(const float* __restrict__ params,
+                           const typename ElemOf<Factor>::type* __restrict__ packed, int64_t n,
+                           int64_t ld, float* __restrict__ out) {
   constexpr int kRows = Factor::kRows;
   constexpr int kParams = Factor::kParams;
   constexpr int kOut = Factor::kOut;
@@ -368,10 +409,10 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y;
   const int64_t tiles = num_tiles(n);
   const int64_t tile = blockIdx.x;
-  const float* base = packed + static_cast<int64_t>(b) * kRows * ld;
+  const auto* base = packed + static_cast<int64_t>(b) * kRows * ld;
   const int64_t lane0 = kLanesPerThread * static_cast<int64_t>(threadIdx.x);
 
-  Vec v[kRows];
+  VecOf<Factor> v[kRows];
   const bool has_lanes = tile < tiles && tile * kTile + lane0 < n;
   if (has_lanes) load_tile<kRows>(v, base, ld, tile, lane0);
   if (threadIdx.x < kParams) prm[threadIdx.x] = params[b * kParams + threadIdx.x];
@@ -393,8 +434,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <class Factor, int kLoss>
-cudaError_t launch_cluster(int device, int blocks, const float* params, const float* packed,
-                           int batch, int64_t n, int64_t ld, float* out, cudaStream_t stream) {
+cudaError_t launch_cluster(int device, int blocks, const float* params,
+                           const typename ElemOf<Factor>::type* packed, int batch, int64_t n,
+                           int64_t ld, float* out, cudaStream_t stream) {
   const auto kernel = onepass_cluster_kernel<Factor, kLoss>;
   // Clusters above the portable 8 blocks, allowed once on each device (the
   // attribute acts on the current one; devices past 64 set it every call).
@@ -423,9 +465,10 @@ cudaError_t launch_cluster(int device, int blocks, const float* params, const fl
 }
 
 template <class Factor, int kLoss>
-cudaError_t launch_loss(int device, const float* params, const float* packed, int batch,
-                        int64_t n, int64_t ld, float* tile_partials, unsigned int* counters,
-                        float* out, cudaStream_t stream) {
+cudaError_t launch_loss(int device, const float* params,
+                        const typename ElemOf<Factor>::type* packed, int batch, int64_t n,
+                        int64_t ld, float* tile_partials, unsigned int* counters, float* out,
+                        cudaStream_t stream) {
   const int64_t cluster = cluster_blocks(n);
   if (cluster > 0) {
     return launch_cluster<Factor, kLoss>(device, static_cast<int>(cluster), params, packed,
@@ -450,19 +493,25 @@ cudaError_t launch_loss(int device, const float* params, const float* packed, in
   return cudaGetLastError();
 }
 
-// params (batch, kParams), packed (batch, kRows, ld), tile_partials
+// params (batch, kParams), packed (batch, kRows, ld) of ElemOf<Factor>
+// (float32, or bf16 for the bf16-row instantiations), tile_partials
 // (workspace_floats(batch, n, kOut)), counters (batch,) zero, out
 // (batch, kOut): device pointers (the cluster finish, cluster_blocks(n) > 0,
 // leaves tile_partials and counters alone, and they may be null then).
-// Launches on `stream` and does not synchronise.
+// Rows start on 16-byte boundaries: ld is a multiple of 16 bytes of
+// elements (4 floats, 8 bf16). Launches on `stream` and does not
+// synchronise.
 // Returns a cudaError_t: cudaErrorInvalidValue for a bad loss code, batch,
 // n, ld or alignment, else cudaGetLastError() after the launch.
 template <class Factor>
-int launch(int device, const float* params, const float* packed, int batch, int64_t n,
+int launch(int device, const float* params, const void* packed_rows, int batch, int64_t n,
            int64_t ld, int loss_code, float* tile_partials, unsigned int* counters, float* out,
            void* stream) {
+  using Elem = typename ElemOf<Factor>::type;
+  constexpr int64_t kAlign = 16 / sizeof(Elem);
+  const Elem* packed = static_cast<const Elem*>(packed_rows);
   if (batch < 1 || batch > 65535 || n < 0 || ld < n) return cudaErrorInvalidValue;
-  if (n > 0 && (ld % 4 != 0 || reinterpret_cast<uintptr_t>(packed) % 16 != 0)) {
+  if (n > 0 && (ld % kAlign != 0 || reinterpret_cast<uintptr_t>(packed) % 16 != 0)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);

@@ -1,4 +1,13 @@
-from . import cuda_kernels, mahalanobis, point_to_plane, quadratic, relative_pose, reprojection
+from . import (
+    cuda_kernels,
+    imu,
+    mahalanobis,
+    point_to_plane,
+    quadratic,
+    relative_pose,
+    reprojection,
+)
+from .imu import ImuParams, ImuPreintegrator, PreintegratedImuFactor
 from .mahalanobis import MahalanobisData
 from .point_to_plane import PointToPlaneData
 from .relative_pose import PoseGraphEdges
@@ -6,6 +15,7 @@ from .reprojection import CameraIntrinsics, ReprojectionData
 
 __all__ = [
     "cuda_kernels",
+    "imu",
     "mahalanobis",
     "point_to_plane",
     "quadratic",
@@ -15,5 +25,8 @@ __all__ = [
     "PointToPlaneData",
     "PoseGraphEdges",
     "CameraIntrinsics",
+    "ImuParams",
+    "ImuPreintegrator",
+    "PreintegratedImuFactor",
     "ReprojectionData",
 ]

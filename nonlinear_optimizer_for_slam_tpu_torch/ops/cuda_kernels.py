@@ -17,6 +17,13 @@ version; given CUDA tensors it launches the kernel or raises. Each launch
 adds one to ``LAUNCHES[name]``, so a run can show that it went through the
 kernel.
 
+maha6 and maha3 also read bfloat16 rows (``pack_maha6(...,
+buffer_dtype=torch.bfloat16)``, the TPU kernel's bf16-storage option):
+their wrappers then launch the bf16-row instantiations of the same
+kernels, counted as ``LAUNCHES["maha6_bf16"]`` and
+``LAUNCHES["maha3_bf16"]``, which load bf16 and compute in float32; the
+plain versions widen the same rows to float32 first.
+
 Packed buffers are (B, rows, N) float32, one row per field:
 
     maha6, maha3 (16 rows): p 0-2, mu 3-5, S row-major 6-14, mask 15
@@ -31,9 +38,9 @@ maha3c; (B, 20) [R row-major 9, t 3, inv_fx, inv_fy, cx, cy, loss a,
 loss b, min depth, 0] for reproj.
 
 On the card, the kernels read rows that start on 16-byte boundaries, so
-their buffers are (B, rows, N) views whose rows start every ld floats, ld
-a multiple of 4, with the lanes past N zero: :func:`lane_aligned` makes
-one, and the packers call it for CUDA tensors.
+their buffers are (B, rows, N) views whose rows start every ld elements,
+ld a multiple of 4 floats (8 bf16), with the lanes past N zero:
+:func:`lane_aligned` makes one, and the packers call it for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -62,8 +69,14 @@ from .reprojection import MIN_DEPTH, CameraIntrinsics, ReprojectionData
 
 Tensor = torch.Tensor
 
+# The kernels that also read bfloat16 rows, each through an instantiation
+# of its own (``<name>_bf16``, built from ``csrc/<name>.cu``).
+BF16_ROWS = ("maha6", "maha3")
+
 # Kernel launches since the last reset, by kernel name.
-LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNELS}
+LAUNCHES: Dict[str, int] = {
+    name: 0 for name in (*_build.KERNELS, *(f"{k}_bf16" for k in BF16_ROWS))
+}
 
 # (packed rows, params, outputs) of each kernel.
 _SHAPES = {
@@ -79,10 +92,15 @@ _SHAPES = {
 ONE_PASS = ("maha6", "maha3", "maha3c", "reproj", "p2p")
 # Lanes of one tile (onepass.cuh: kTile), the most tiles of a problem that
 # takes the cluster finish (kClusterTiles), and the alignment of a row, in
-# floats.
+# floats (16 bytes; 8 lanes of bf16 rows).
 ONE_PASS_TILE = 512
 ONE_PASS_CLUSTER_TILES = 16
 LANE_ALIGN = 4
+
+
+def _lane_align(dtype: torch.dtype) -> int:
+    """Lanes of a 16-byte row alignment for rows of ``dtype``."""
+    return 16 // torch.empty(0, dtype=dtype).element_size()
 
 
 def onepass_num_tiles(n: int) -> int:
@@ -267,7 +285,9 @@ def _upper_products(J, w, r):
 
 
 def maha6_terms(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
-    """(B, 28, N): every factor's 28 terms, the kernel's arithmetic."""
+    """(B, 28, N): every factor's 28 terms, the kernel's arithmetic (bf16
+    rows widened to float32 first)."""
+    packed = packed.float()
     prm = lambda k: params[:, k : k + 1]  # (B, 1), broadcasts over N
     R = [prm(k) for k in range(9)]
     t = [prm(9 + k) for k in range(3)]
@@ -309,7 +329,8 @@ def maha6_terms(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
 
 def maha3_terms(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     """(B, 10, N): every factor's 10 planar terms, the kernel's
-    arithmetic."""
+    arithmetic (bf16 rows widened to float32 first)."""
+    packed = packed.float()
     prm = lambda k: params[:, k : k + 1]
     R00, R01, R10, R11 = (prm(k) for k in range(4))
     f = lambda k: packed[:, k]
@@ -443,14 +464,16 @@ _TERMS = {
 
 def maha6_plain(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     """Plain PyTorch version of the maha6 kernel: (B, 16) params and
-    (B, 16, N) packed -> (B, 28). The CPU path, and what the kernel is
-    compared with on the card."""
+    (B, 16, N) packed (float32, or bf16 rows widened to float32) ->
+    (B, 28). The CPU path, and what the kernel is compared with on the
+    card."""
     return maha6_terms(params, packed, loss_code).sum(dim=-1)
 
 
 def maha3_plain(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     """Plain PyTorch version of the maha3 kernel: (B, 8) params and
-    (B, 16, N) packed -> (B, 10)."""
+    (B, 16, N) packed (float32, or bf16 rows widened to float32) ->
+    (B, 10)."""
     return maha3_terms(params, packed, loss_code).sum(dim=-1)
 
 
@@ -495,6 +518,7 @@ _ONE_PASS_ARGS = [
 # the launches and the empty kernel.
 _SIGNATURES = {
     **{f"nls_{k}_launch": (_ONE_PASS_ARGS, ctypes.c_int) for k in ONE_PASS},
+    **{f"nls_{k}_bf16_launch": (_ONE_PASS_ARGS, ctypes.c_int) for k in BF16_ROWS},
     "nls_empty_launch": ([ctypes.c_int, ctypes.c_void_p], ctypes.c_int),  # device, stream
 }
 
@@ -523,8 +547,12 @@ def _check(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tuple[i
         raise ValueError(
             f"{name}: params must be ({batch}, {n_params}), got {tuple(params.shape)}"
         )
-    if packed.dtype != torch.float32 or params.dtype != torch.float32:
-        raise TypeError(f"{name} takes float32 params and packed")
+    row_types = (torch.float32, torch.bfloat16) if name in BF16_ROWS else (torch.float32,)
+    if packed.dtype not in row_types or params.dtype != torch.float32:
+        raise TypeError(
+            f"{name} takes float32 params and "
+            + ("float32 or bfloat16" if name in BF16_ROWS else "float32") + " packed"
+        )
     if packed.device != params.device:
         raise ValueError("params and packed must be on one device")
     if not 0 <= loss_code < _NUM_LOSSES:
@@ -579,27 +607,28 @@ def _workspace(name: str, device, index: int, stream: int, floats: int, batch: i
 
 def _one_pass_ld(name: str, packed: Tensor) -> int:
     """The row stride ld of a (B, rows, N) buffer that the one-pass kernel
-    ``name`` can read: rows of unit stride starting every ld floats,
-    ld % 4 == 0, problems every rows * ld floats, 16-byte aligned, and the
-    last row's N lanes, rounded up to 16 bytes (what the kernel reads),
-    inside the storage. Raises otherwise."""
+    ``name`` can read: rows of unit stride starting every ld elements,
+    ld a multiple of 16 bytes (4 floats, 8 bf16), problems every rows * ld
+    elements, 16-byte aligned, and the last row's N lanes, rounded up to 16
+    bytes (what the kernel reads), inside the storage. Raises otherwise."""
     batch, rows, n = packed.shape
     ld = packed.stride(1)
     if n == 0:
         return ld
+    align = _lane_align(packed.dtype)
     end = packed.storage_offset() + (batch - 1) * packed.stride(0) + (rows - 1) * ld
-    end += -(-n // LANE_ALIGN) * LANE_ALIGN  # past the last lane read
+    end += -(-n // align) * align  # past the last lane read
     if (
         packed.stride(2) != 1
         or ld < n
-        or ld % LANE_ALIGN
+        or ld % align
         or (batch > 1 and packed.stride(0) != rows * ld)
         or packed.data_ptr() % 16
         or end * packed.element_size() > packed.untyped_storage().nbytes()
     ):
         raise ValueError(
             f"{name}: packed must be a (B, {rows}, N) view of a 16-byte-aligned "
-            f"(B, {rows}, ld) buffer with ld % {LANE_ALIGN} == 0 (see lane_aligned), "
+            f"(B, {rows}, ld) buffer with ld % {align} == 0 (see lane_aligned), "
             f"got shape {tuple(packed.shape)}, strides {packed.stride()}"
         )
     return ld
@@ -607,10 +636,11 @@ def _one_pass_ld(name: str, packed: Tensor) -> int:
 
 def _onepass(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     """One-pass kernel ``name`` (:data:`ONE_PASS`, ``csrc/onepass.cuh``) on
-    (B, params) and (B, rows, N) float32 -> (B, out) float32: one device
-    kernel on the current stream, not synchronised. CPU tensors take the
-    plain version. A CUDA buffer must be laid out as :func:`lane_aligned`
-    makes it, or the call raises."""
+    (B, params) and (B, rows, N) float32 (bf16 for :data:`BF16_ROWS`: the
+    kernel's bf16-row instantiation) -> (B, out) float32: one device kernel
+    on the current stream, not synchronised. CPU tensors take the plain
+    version. A CUDA buffer must be laid out as :func:`lane_aligned` makes
+    it, or the call raises."""
     batch, n = _check(name, params, packed, loss_code)
     if packed.device.type == "cpu":
         return _TERMS[name](params, packed, loss_code).sum(dim=-1)
@@ -618,6 +648,7 @@ def _onepass(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tenso
     if not params.is_contiguous():
         raise ValueError(f"{name} takes contiguous params")
 
+    kernel = f"{name}_bf16" if packed.dtype == torch.bfloat16 else name
     n_out = _SHAPES[name][2]
     index = _device_index(packed)
     stream = _current_stream(index)
@@ -625,9 +656,9 @@ def _onepass(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tenso
     tile_sums = counters = None
     if onepass_cluster_blocks(n) == 0:
         floats = onepass_workspace_floats(batch, n, n_out)
-        tile_sums, counters = _workspace(name, packed.device, index, stream, floats, batch)
+        tile_sums, counters = _workspace(kernel, packed.device, index, stream, floats, batch)
     out = torch.empty((batch, n_out), dtype=torch.float32, device=packed.device)
-    err = _fn(name, f"nls_{name}_launch")(
+    err = _fn(name, f"nls_{kernel}_launch")(
         index,
         params.data_ptr(),
         packed.data_ptr(),
@@ -641,8 +672,8 @@ def _onepass(name: str, params: Tensor, packed: Tensor, loss_code: int) -> Tenso
         stream,
     )
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {err}")
+    LAUNCHES[kernel] += 1
     return out
 
 
@@ -659,13 +690,14 @@ def _empty_launch(device) -> None:
 def lane_aligned(packed: Tensor) -> Tensor:
     """``packed`` (..., rows, N) as the one-pass kernels read it on the
     card: the same values, as a view of a buffer whose rows start every
-    ld = round_up(N, 4) floats, 16-byte aligned, with lanes N .. ld - 1 zero
-    (the mask row included). A contiguous buffer with N % 4 == 0 comes back
-    as it is. The packers call it for CUDA tensors only: PyTorch's sums on
-    the CPU are not invariant to zero lanes, so CPU buffers stay as they
-    are."""
+    ld = round_up(N, 4) floats (round_up(N, 8) bf16: 16-byte rows either
+    way), 16-byte aligned, with lanes N .. ld - 1 zero (the mask row
+    included). A contiguous buffer with N a multiple of the alignment comes
+    back as it is. The packers call it for CUDA tensors only: PyTorch's
+    sums on the CPU are not invariant to zero lanes, so CPU buffers stay as
+    they are."""
     n = packed.shape[-1]
-    pad = -n % LANE_ALIGN
+    pad = -n % _lane_align(packed.dtype)
     if pad:
         return torch.nn.functional.pad(packed, (0, pad))[..., :n]
     out = packed.contiguous()
@@ -676,7 +708,8 @@ def maha6_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     """(B, 16) params and (B, 16, N) packed -> (B, 28) float32: per
     problem, the 21 upper-triangle entries of H, the 6 of g and the cost
     (``csrc/maha6.cu``; the plain version on the CPU). A CUDA buffer is laid
-    out as :func:`lane_aligned` makes it."""
+    out as :func:`lane_aligned` makes it; bf16 rows take the bf16-row
+    instantiation (``LAUNCHES["maha6_bf16"]``)."""
     return _onepass("maha6", params, packed, loss_code)
 
 
@@ -684,7 +717,8 @@ def maha3_partials(params: Tensor, packed: Tensor, loss_code: int) -> Tensor:
     """(B, 8) params and (B, 16, N) packed -> (B, 10) float32: per problem,
     the 6 upper-triangle entries of the planar H, the 3 of g and the cost
     (``csrc/maha3.cu``; the plain version on the CPU). A CUDA buffer is laid
-    out as :func:`lane_aligned` makes it."""
+    out as :func:`lane_aligned` makes it; bf16 rows take the bf16-row
+    instantiation (``LAUNCHES["maha3_bf16"]``)."""
     return _onepass("maha3", params, packed, loss_code)
 
 
@@ -729,15 +763,23 @@ def unpack_maha6_out(out: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
 # ----------------------------------------------------------------------------
 
 
-def pack_maha6(data: MahalanobisData) -> Tensor:
-    """(..., N, ...) SoA -> packed transposed (..., 16, N) float32 rows (see
-    the module docstring), for maha6 and maha3: contiguous on the CPU, laid
-    out by :func:`lane_aligned` on the card. Once per solve, outside the LM
-    loop."""
+def pack_maha6(data: MahalanobisData, buffer_dtype: torch.dtype = torch.float32) -> Tensor:
+    """(..., N, ...) SoA -> packed transposed (..., 16, N) rows (see the
+    module docstring), for maha6 and maha3: contiguous on the CPU, laid out
+    by :func:`lane_aligned` on the card. Once per solve, outside the LM
+    loop.
+
+    ``buffer_dtype=torch.bfloat16`` stores the rows in bf16 (half the bytes;
+    the kernels widen them and compute in float32), the JAX package's
+    ``pack_maha6(..., buffer_dtype=jnp.bfloat16)``: the data's values are
+    rounded to bf16 once, to nearest even, from their own dtype. Float32
+    is the default, and no solver of the port asks for bf16."""
+    if buffer_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"buffer_dtype must be float32 or bfloat16, got {buffer_dtype}")
     infos = data.sqrt_infos.reshape(data.sqrt_infos.shape[:-2] + (9,))
     rows = torch.cat(
         [data.points, data.means, infos, data.mask[..., None]], dim=-1
-    ).mT.to(torch.float32)  # (..., 16, N)
+    ).mT.to(buffer_dtype)  # (..., 16, N)
     return lane_aligned(rows) if rows.is_cuda else rows.contiguous()
 
 

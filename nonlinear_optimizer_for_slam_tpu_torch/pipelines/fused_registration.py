@@ -739,15 +739,17 @@ def register_ndt_fused(
 
 def _packed_lm_solve(t0: Tensor, q0: Tensor, packed: Tensor, loss, options: Options,
                      planar: bool = False):
-    """LM over a prepacked (16, N) float32 correspondence buffer (the maha6
-    layout, for example ``native.match_and_pack``'s rows): 6-DoF through
-    the maha6 kernel, ``planar`` (x, y, yaw; z, roll and pitch kept) through
-    maha3, one launch per LM evaluation. ``t0`` (3,) and ``q0`` (4,) are on
-    ``packed``'s device in the LM's dtype; the loss tail is built once per
-    solve. On the card ``packed`` is laid out as ``ck.lane_aligned`` makes
-    it (a (16, N) view of a (16, ld) buffer, ld % 4 == 0, 16-byte aligned);
-    on the CPU the plain versions run. Returns (t, q, iterations,
-    final_cost), tensors on the device."""
+    """LM over a prepacked (16, N) correspondence buffer (the maha6 layout,
+    for example ``native.match_and_pack``'s rows; float32, or bfloat16 from
+    ``ck.pack_maha6(..., buffer_dtype=torch.bfloat16)``, which the kernels'
+    bf16-row instantiations read): 6-DoF through the maha6 kernel,
+    ``planar`` (x, y, yaw; z, roll and pitch kept) through maha3, one launch
+    per LM evaluation. ``t0`` (3,) and ``q0`` (4,) are on ``packed``'s
+    device in the LM's dtype; the loss tail is built once per solve. On the
+    card ``packed`` is laid out as ``ck.lane_aligned`` makes it (a (16, N)
+    view of a (16, ld) buffer with 16-byte rows, 16-byte aligned); on the
+    CPU the plain versions run. Returns (t, q, iterations, final_cost),
+    tensors on the device."""
     code, loss_ab = ck.maha6_loss_ab(loss, packed.device)
     batch = packed[None]  # a batch of one problem
 

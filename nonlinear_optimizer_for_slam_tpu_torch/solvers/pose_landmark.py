@@ -881,7 +881,7 @@ class PoseLandmarkOptimizer(_LandmarkRegistry):
         )
 
 
-def _sparse_marginals_from_lin(lin, dp: int, dl: int, device="cpu"):
+def _sparse_marginals_from_lin(lin, dp: int, dl: int, device):
     """The sparse selected-inverse marginals shared by the SE(3) (dp=6,
     dl=3) and SE(2) (dp=3, dl=2) landmark optimizers (see
     ``_LandmarkRegistry._sparse_marginals`` for the derivation). ``lin``

@@ -6,13 +6,15 @@ on the CPU (``--device cpu``).
   solves with solver="auto", reports the pick and writes the solved file.
 - ``pose_graph_slam`` and ``hand_eye_calibration`` print, line for line,
   what the JAX examples print (both solve in float64 here: the port by
-  default, the JAX package under the tests' x64 mode).
+  default, the JAX package under the tests' x64 mode); so does
+  ``gps_ins``, its two wall times aside.
 - ``bal_solve`` with no file, on a small ``--max-iterations`` on the CPU,
   prints its per-iteration trace and its final cost, and writes the solved
   problem as a BAL file the JAX reader reads.
-- Importing ``native``, ``solvers.fixed_lag``, the bundle adjustment, BAL
-  and pose-landmark modules with their IO and anchor, and every example
-  module leaves no ``jax`` module loaded (in a fresh interpreter).
+- Importing ``native``, ``solvers.fixed_lag``, the bundle adjustment, BAL,
+  pose-landmark, inertial and Sim(3) modules with their IO and anchor, and
+  every example module leaves no ``jax`` module loaded (in a fresh
+  interpreter).
 
 The heavier examples driven as libraries have files of their own:
 tests/test_torch_incremental_mapping.py, tests/test_torch_multi_robot.py
@@ -23,6 +25,7 @@ import contextlib
 import importlib.util
 import io
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -33,13 +36,14 @@ import torch
 from nonlinear_optimizer_for_slam_tpu_torch.examples import (
     bal_solve,
     g2o_solve,
+    gps_ins,
     hand_eye_calibration,
     pose_graph_slam,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = (
-    "bal_solve", "fixed_lag_slam", "full_slam", "g2o_solve", "hand_eye_calibration",
+    "bal_solve", "fixed_lag_slam", "full_slam", "g2o_solve", "gps_ins", "hand_eye_calibration",
     "incremental_mapping", "multi_robot_map_merge", "ndt_registration",
     "pose_graph_slam", "serving_batch",
 )
@@ -121,15 +125,29 @@ def test_example_prints_what_the_jax_example_prints(port_module, name):
     assert mine == theirs
 
 
+def test_gps_ins_prints_what_the_jax_example_prints():
+    """Line for line, with the batch solve's and the online update's wall
+    times (``<n> ms``) left out: both packages solve in float64."""
+    wall = lambda text: [re.sub(r"\d+ ms", "<n> ms", line) for line in text.splitlines()]
+    theirs = wall(_printed(_jax_example("gps_ins").main))
+    mine = wall(_printed(gps_ins.main, device="cpu"))
+    assert len(theirs) == 7
+    assert mine == theirs
+
+
 def test_the_port_modules_import_no_jax():
     """In a fresh interpreter, the binding, the smoother, the bundle
-    adjustment, BAL and pose-landmark modules and every example import
-    without loading jax or any module of the JAX package."""
+    adjustment, BAL, pose-landmark, inertial and Sim(3) modules and every
+    example import without loading jax or any module of the JAX
+    package."""
     mods = ["nonlinear_optimizer_for_slam_tpu_torch.native",
             "nonlinear_optimizer_for_slam_tpu_torch.solvers.fixed_lag",
             "nonlinear_optimizer_for_slam_tpu_torch.solvers.bundle_adjustment",
             "nonlinear_optimizer_for_slam_tpu_torch.solvers.bal",
             "nonlinear_optimizer_for_slam_tpu_torch.solvers.pose_landmark",
+            "nonlinear_optimizer_for_slam_tpu_torch.solvers.inertial",
+            "nonlinear_optimizer_for_slam_tpu_torch.solvers.sim3_graph",
+            "nonlinear_optimizer_for_slam_tpu_torch.ops.imu",
             "nonlinear_optimizer_for_slam_tpu_torch.io.bal",
             "nonlinear_optimizer_for_slam_tpu_torch.utils.anchor_np",
             "nonlinear_optimizer_for_slam_tpu_torch.examples"]

@@ -8,6 +8,13 @@ agree to float32 summation error: rtol 2e-5, atol 1e-4 on H and g (the
 tolerance of test_maha6_kernel_matches_jnp), rtol 2e-5 on the cost. The
 "torch" backend and JAX's "jnp" backend are compared in float64, where only
 summation order differs: rtol 1e-10.
+
+The bf16 rows (``pack_maha6(..., buffer_dtype=torch.bfloat16)``): the port's
+bf16 buffer is bitwise JAX's (float32 and float64 data, the plane layout
+undone), and the bf16 plain maha6 and maha3 versions agree with JAX's
+``_maha6_pallas`` and ``_maha3_pallas``, interpreted, on the same bf16 rows
+at the float32 rows' tolerance above; they give the bits of the float32
+plain versions on the rows widened to float32.
 """
 
 import jax.numpy as jnp
@@ -200,6 +207,93 @@ def test_torch_backend_matches_jnp_f64(pose, factors, name, params):
     )
     _assert_quadratic_close(got, want, rtol=1e-10, atol=1e-9, cost_rtol=1e-10)
     assert got[0].dtype == torch.float64
+
+
+def _bf16_bits(a) -> np.ndarray:
+    return np.asarray(a).view(np.uint16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pack_bf16_bitwise_jax(factors, dtype):
+    data = _torch_data(factors, getattr(torch, dtype))
+    packed = ck.pack_maha6(data, buffer_dtype=torch.bfloat16)
+    assert packed.shape == (16, 700) and packed.dtype == torch.bfloat16
+    jpacked = pk.pack_maha6(_jax_data(factors, getattr(jnp, dtype)), None, jnp.bfloat16)
+    jrows = np.asarray(jpacked).reshape(16, -1)[:, :700]
+    np.testing.assert_array_equal(packed.view(torch.int16).numpy().view(np.uint16),
+                                  _bf16_bits(jrows))
+    with pytest.raises(ValueError, match="buffer_dtype"):
+        ck.pack_maha6(data, buffer_dtype=torch.float16)
+
+
+def _bf16_rows(d):
+    return ck.pack_maha6(_torch_data(d, torch.float32), buffer_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["maha6", "maha3"])
+@pytest.mark.parametrize("name,params", LOSS_CASES, ids=IDS)
+def test_bf16_plain_matches_pallas(pose, factors, kernel, name, params):
+    """The port's bf16 plain version against JAX's Pallas kernel,
+    interpreted, on bitwise the same bf16 rows (JAX's packing, whose
+    kernel loads upcast them): the float32 rows' tolerance."""
+    rows = _bf16_rows(factors)
+    jrows = pk.pack_maha6(_jax_data(factors, jnp.float32), None, jnp.bfloat16)
+    tloss, jloss = getattr(port, name)(**params), getattr(jlosses, name)(**params)
+    ck.reset_launches()
+    if kernel == "maha6":
+        R = torch.as_tensor(pose.rotation, dtype=torch.float32)
+        t = torch.as_tensor(pose.translation, dtype=torch.float32)
+        got = ck.maha6_eval_quadratic_packed(R, t, rows, tloss)
+        want = pk.maha6_eval_quadratic_packed(
+            jnp.asarray(pose.rotation, jnp.float32), jnp.asarray(pose.translation, jnp.float32),
+            jrows, jloss,
+        )
+    else:
+        theta = 0.3
+        R2 = np.array([[np.cos(theta), -np.sin(theta)], [np.sin(theta), np.cos(theta)]])
+        t2 = pose.translation[:2]
+        got = ck.maha3_eval_quadratic_packed(
+            torch.as_tensor(R2, dtype=torch.float32), torch.as_tensor(t2, dtype=torch.float32),
+            rows, tloss,
+        )
+        want = pk.maha3_eval_quadratic_packed(
+            jnp.asarray(R2, jnp.float32), jnp.asarray(t2, jnp.float32), jrows, jloss,
+        )
+    assert not any(ck.LAUNCHES.values())  # the CPU takes the plain version
+    _assert_quadratic_close(got, want)
+    # the bf16 rows sum as the float32 plain version of the widened rows
+    widened = rows.float()
+    if kernel == "maha6":
+        same = ck.maha6_eval_quadratic_packed(R, t, widened, tloss)
+    else:
+        same = ck.maha3_eval_quadratic_packed(
+            torch.as_tensor(R2, dtype=torch.float32), torch.as_tensor(t2, dtype=torch.float32),
+            widened, tloss,
+        )
+    for a, b in zip(got, same):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_bf16_rows_layout_and_wrapper_types(factors):
+    """bf16 rows align to 8 lanes (16 bytes); only maha6 and maha3 take
+    them."""
+    rows = _bf16_rows(factors)[None]  # (1, 16, 700)
+    aligned = ck.lane_aligned(rows)
+    assert aligned.stride(1) == 704 and aligned.dtype == torch.bfloat16
+    assert ck._one_pass_ld("maha6", aligned) == 704
+    assert torch.equal(aligned, rows)
+    whole = aligned.as_strided((1, 16, 704), (16 * 704, 704, 1))
+    assert not whole[..., 700:].float().any()  # the padded lanes are zero
+    with pytest.raises(ValueError, match="ld % 8"):
+        ck._one_pass_ld("maha6", torch.zeros((1, 16, 1004), dtype=torch.bfloat16)[..., :700])
+    code, ab = ck.maha6_loss_ab(None, "cpu")
+    with pytest.raises(TypeError):
+        ck.maha3c_partials(ck.maha3_params(torch.eye(2)[None], torch.zeros(1, 2), ab),
+                           torch.zeros((1, 10, 8), dtype=torch.bfloat16), code)
+    with pytest.raises(TypeError):
+        ck.maha6_partials(ck.maha6_params(torch.eye(3)[None], torch.zeros(1, 3), ab),
+                          rows.half(), code)
+    assert set(ck.LAUNCHES) >= {"maha6_bf16", "maha3_bf16"}
 
 
 def test_data_pad_and_cast(factors):
