@@ -4564,9 +4564,11 @@ def _profile(fn, warm: bool = True) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1000.0
     launches = {k: v - before[k] for k, v in ck.LAUNCHES.items() if v != before[k]}
     events = prof.key_averages()
-    rows = sorted(  # device-side events only: a CPU op's device time repeats its kernels'
+    rows = sorted(  # device-side events only: a CPU op's device time repeats its kernels',
+        # and a span's mirror on the device's timeline (the port's nls.* spans) is no work
         ((ev.self_device_time_total, ev.key, ev.count) for ev in events
-         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+         and not getattr(ev, "is_user_annotation", False)),
         reverse=True,
     )
     host = sorted(

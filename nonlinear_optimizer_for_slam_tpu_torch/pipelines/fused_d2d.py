@@ -36,6 +36,7 @@ from ..core.options import Options
 from ..core.pose import Pose
 from ..ops import cuda_kernels as ck
 from ..ops import mahalanobis as maha_ops
+from ..utils import tracing
 from . import ndt as ndt_mod
 from .fused_registration import FusedRegistrationResult, _Machine, _round_up
 from .ndt import NdtMap
@@ -135,6 +136,7 @@ class D2dRegistrar(_Machine):
         mask = (np.arange(Sp) < S).astype(np.float64)
         return self._as_t(means)[None], self._as_t(covs)[None], self._as_t(mask)[None]
 
+    @tracing.traced("nls.register")
     def register(self, local_points, initial_pose: Pose) -> FusedRegistrationResult:
         return self.finalize(self.register_async(local_points, initial_pose))
 

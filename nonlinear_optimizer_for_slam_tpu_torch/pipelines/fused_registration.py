@@ -99,6 +99,7 @@ from ..solvers import lm
 from ..solvers import minimizers as mins
 from ..solvers.linear import damp_hessian, solve_normal_equations
 from ..solvers.manifolds import SE2Params, SE3Params, se2_retract, se3_retract
+from ..utils import tracing
 from . import matching
 from . import ndt as ndt_mod
 from .ndt import NdtMap
@@ -253,11 +254,14 @@ class _Machine:
         return _Machine.finalize_batch(device_out)[0]
 
     @staticmethod
+    @tracing.traced("nls.batch.finalize")
     def finalize_batch(device_out) -> list:
         """Copy a run's device tensors to the host and unpack them into
         one ``FusedRegistrationResult`` per scan; q is renormalised in
         float64."""
-        ts, qs, its, inner_its, costs, final_costs = (a.cpu().numpy() for a in device_out)
+        ts, qs, its, inner_its, costs, final_costs = (
+            tracing.host_read(a).numpy() for a in device_out
+        )
         results = []
         for b in range(ts.shape[0]):
             qn = np.asarray(qs[b], np.float64)
@@ -301,17 +305,23 @@ class _Machine:
             final_cost=torch.full((B,), float("nan"), dtype=dt, device=dev),
             active_steps=torch.zeros((), dtype=torch.int64, device=dev),
         )
-        data = operand(t0, q0)
+
+        def match(t, q):
+            with tracing.span("nls.match"):
+                return operand(t, q)
+
+        data = match(t0, q0)
         steps = reads = 0
         while True:
-            st, data, flags = self._block(st, data, operand if vmap else None)
+            with tracing.span("nls.block"):
+                st, data, flags = self._block(st, data, match if vmap else None)
             steps += BLOCK_STEPS
-            all_done, sync = flags.tolist()  # the one host read of the block
+            all_done, sync = tracing.host_read(flags, Tensor.tolist)  # the one read of the block
             reads += 1
             if all_done:
                 break
             if sync:
-                data = operand(st.t, st.q)
+                data = match(st.t, st.q)
                 st = st._replace(waiting=false)
         self._last_run = {"steps": steps, "host_reads": reads, "active_steps": st.active_steps}
         return st.t, st.q, st.outer_it, st.inner_its, st.costs, st.final_cost
@@ -535,6 +545,7 @@ class NdtRegistrar(_Machine):
     # public API (the JAX package's)
     # ------------------------------------------------------------------
 
+    @tracing.traced("nls.register")
     def register(self, local_points, initial_pose: Pose) -> FusedRegistrationResult:
         return self.finalize(self.register_async(local_points, initial_pose))
 
@@ -544,6 +555,7 @@ class NdtRegistrar(_Machine):
         between blocks still wait for the device."""
         return self._launch([local_points], [initial_pose])
 
+    @tracing.traced("nls.register")
     def register_batch(self, local_points_batch, initial_poses, mode: str = "lockstep") -> list:
         """Register B scans (a (B, N, 3) array or a list of ragged (N_b, 3)
         arrays, padded with masked rows) in one run of the machine. Each
@@ -613,6 +625,12 @@ class NdtRegistrar(_Machine):
         returns (t, q, outer_it, inner_its, costs, final_cost), (B, ...)
         device tensors. Under a mesh N is a multiple of the world size and
         the machine runs on this rank's block of the points."""
+        return self._run(*self._upload(scans, initial_poses), vmap)
+
+    @tracing.traced("nls.batch.upload")
+    def _upload(self, scans, initial_poses):
+        """The scans padded to one N, their masks and the initial poses, on
+        the device: (points (B, N, 3), mask (B, N), t0 (B, 3), q0 (B, 4))."""
         scans = [np.asarray(s) for s in scans]
         B, n_max = len(scans), max(s.shape[0] for s in scans)
         if self.mesh is not None:
@@ -630,7 +648,7 @@ class NdtRegistrar(_Machine):
         pmask = as_t(mask)
         t0 = as_t(np.stack([p.translation for p in initial_poses]))
         q0 = as_t(np.stack([p.quaternion() for p in initial_poses]))
-        return self._run(points, pmask, t0, q0, vmap)
+        return points, pmask, t0, q0
 
     def _run(self, points: Tensor, pmask: Tensor, t0: Tensor, q0: Tensor, vmap: bool = False):
         k = self.num_neighbors
@@ -834,6 +852,7 @@ class HybridRegistrar:
             )
         return self._host, self._dev
 
+    @tracing.traced("nls.register")
     def register(self, local_points, initial_pose: Pose) -> FusedRegistrationResult:
         from .. import native
 
@@ -859,13 +878,14 @@ class HybridRegistrar:
             # every iteration, and the final read copies t, q, the count
             # and the cost), which waits for every earlier op on the
             # stream, the copy included. Nothing else orders the two.
-            native.match_and_pack(
-                pts, pose.rotation, pose.translation, self.means, self.sqrt_infos,
-                self.search_radius, k, host.shape[1], out=host_np,
-                num_threads=self.num_threads,
-            )
-            if dev is not host:
-                dev.copy_(host, non_blocking=True)
+            with tracing.span("nls.match"):
+                native.match_and_pack(
+                    pts, pose.rotation, pose.translation, self.means, self.sqrt_infos,
+                    self.search_radius, k, host.shape[1], out=host_np,
+                    num_threads=self.num_threads,
+                )
+                if dev is not host:
+                    dev.copy_(host, non_blocking=True)
             x0 = torch.as_tensor(
                 np.concatenate([pose.translation, pose.quaternion()]),
                 dtype=torch.float32, device=self.device,
@@ -874,7 +894,7 @@ class HybridRegistrar:
                 x0[:3], x0[3:], packed, self.loss, self.options, self.planar
             )
             out = torch.cat([t, q, iters.reshape(1).to(t.dtype), cost.reshape(1)])
-            out = out.cpu().numpy().astype(np.float64)  # the one host read
+            out = tracing.host_read(out).numpy().astype(np.float64)  # the one host read
             qn = out[3:7] / np.linalg.norm(out[3:7])
             pose = Pose(np_quat_to_rotmat(qn), out[:3].copy())
             inner_its[outer_it] = int(out[7])

@@ -25,6 +25,7 @@ from ..core.options import Options
 from ..core.pose import Pose
 from ..ops import mahalanobis
 from ..solvers.minimizers import _MinimizerBase
+from ..utils import tracing
 from . import matching
 from . import ndt as ndt_mod
 from .ndt import NdtMap
@@ -40,6 +41,7 @@ class RegistrationResult:
     summaries: list  # per-outer-iteration inner Summary
 
 
+@tracing.traced("nls.register")
 def register_ndt(
     ndt_map: NdtMap,
     local_points: np.ndarray,
@@ -84,7 +86,9 @@ def _outer_loop(
     summaries = []
     outer_iter = 0
     for outer_iter in range(max_outer_iterations):
-        pose, summary = minimizer.solve(options, match(pose), pose)
+        with tracing.span("nls.match"):
+            data = match(pose)
+        pose, summary = minimizer.solve(options, data, pose)
         summaries.append(summary)
 
         diff = pose.inverse() * last_pose
@@ -99,6 +103,7 @@ def _outer_loop(
     return RegistrationResult(pose=pose, outer_iterations=outer_iter, summaries=summaries)
 
 
+@tracing.traced("nls.register")
 def register_d2d_ndt(
     ndt_map: NdtMap,
     local_points: np.ndarray,
@@ -171,6 +176,7 @@ def register_d2d_ndt(
     )
 
 
+@tracing.traced("nls.register")
 def register_point_to_plane(
     ndt_map: NdtMap,
     local_points: np.ndarray,

@@ -42,6 +42,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..core.options import MinimizerType, Options
+from ..utils import tracing
 from .linear import damp_hessian, solve_normal_equations
 
 Tensor = torch.Tensor
@@ -194,68 +195,69 @@ def solve_batch(
         return tree_map(lambda x, y: torch.where(lanes(mask, x), x, y), a, b)
 
     for iteration in range(max_it):
-        active = ~done
-        hessian, gradient, cost = eval_quadratic(params)
+        with tracing.span("nls.lm.iter"):
+            active = ~done
+            hessian, gradient, cost = eval_quadratic(params)
 
-        if options.minimizer_type == MinimizerType.GRADIENT_DESCENT:
-            delta = tree_map(lambda g: -oh.gradient_descent_step * g, gradient)
-        elif solve_linear is not None:
-            delta = solve_linear(hessian, gradient, lam)
-        else:
-            damped = damp_hessian(hessian, lam)
-            delta = solve_normal_equations(
-                damped, -gradient, options.linear_solver_type
+            if options.minimizer_type == MinimizerType.GRADIENT_DESCENT:
+                delta = tree_map(lambda g: -oh.gradient_descent_step * g, gradient)
+            elif solve_linear is not None:
+                delta = solve_linear(hessian, gradient, lam)
+            else:
+                damped = damp_hessian(hessian, lam)
+                delta = solve_normal_equations(
+                    damped, -gradient, options.linear_solver_type
+                )
+            # Degenerate-system guard: a singular damped H yields a non-finite
+            # step; take a zero step instead, so the instance converges in place.
+            finite = torch.ones(B, dtype=torch.bool, device=device)
+            for leaf in tree_leaves(delta):
+                finite = finite & torch.all(torch.isfinite(leaf.reshape(B, -1)), dim=1)
+            delta = tree_map(lambda d: torch.where(lanes(finite, d), d, torch.zeros_like(d)), delta)
+            step_norm = _lane_norm(delta, B)
+            grad_norm = _lane_norm(gradient, B)
+
+            new_params = retract(params, delta)
+
+            ref_converged = (step_norm < ch.parameter_tolerance) | (
+                grad_norm < ch.gradient_tolerance
             )
-        # Degenerate-system guard: a singular damped H yields a non-finite
-        # step; take a zero step instead, so the instance converges in place.
-        finite = torch.ones(B, dtype=torch.bool, device=device)
-        for leaf in tree_leaves(delta):
-            finite = finite & torch.all(torch.isfinite(leaf.reshape(B, -1)), dim=1)
-        delta = tree_map(lambda d: torch.where(lanes(finite, d), d, torch.zeros_like(d)), delta)
-        step_norm = _lane_norm(delta, B)
-        grad_norm = _lane_norm(gradient, B)
+            converged = ref_converged
+            if track_best:
+                # three consecutive iterations that do not beat the best cost
+                # by the relative tolerance end the solve (see the JAX lm.py);
+                # ``cost`` was evaluated at ``params``, the pre-step point
+                improved = (best_cost - cost) > (
+                    ch.relative_function_tolerance * best_cost
+                )
+                new_stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
+                converged = converged | (new_stall >= 3)
+                best_params = select(active & (cost < best_cost), params, best_params)
+                stall = torch.where(active, new_stall, stall)
+                plateau = torch.where(active, converged & ~ref_converged, plateau)
+            best_cost = torch.where(active, torch.minimum(best_cost, cost), best_cost)
 
-        new_params = retract(params, delta)
-
-        ref_converged = (step_norm < ch.parameter_tolerance) | (
-            grad_norm < ch.gradient_tolerance
-        )
-        converged = ref_converged
-        if track_best:
-            # three consecutive iterations that do not beat the best cost
-            # by the relative tolerance end the solve (see the JAX lm.py);
-            # ``cost`` was evaluated at ``params``, the pre-step point
-            improved = (best_cost - cost) > (
-                ch.relative_function_tolerance * best_cost
+            increase = cost > previous_cost
+            adapted = torch.where(
+                increase, lam * oh.lambda_increase_factor,
+                lam * oh.lambda_decrease_factor,
             )
-            new_stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
-            converged = converged | (new_stall >= 3)
-            best_params = select(active & (cost < best_cost), params, best_params)
-            stall = torch.where(active, new_stall, stall)
-            plateau = torch.where(active, converged & ~ref_converged, plateau)
-        best_cost = torch.where(active, torch.minimum(best_cost, cost), best_cost)
-
-        increase = cost > previous_cost
-        adapted = torch.where(
-            increase, lam * oh.lambda_increase_factor,
-            lam * oh.lambda_decrease_factor,
-        )
-        adapted = torch.clamp(adapted, oh.min_lambda, oh.max_lambda)
-        # a finished instance's columns are written too, and reset to NaN
-        # past its own count at exit
-        for rec, value in zip(records, (cost, lam, grad_norm, step_norm)):
-            rec[:, iteration] = value
-        # A converging iteration breaks before the lambda/previous_cost
-        # update (reference: .._analytic.cc:138-148).
-        keep = active & ~converged
-        lam = torch.where(keep, adapted, lam)
-        previous_cost = torch.where(keep, cost, previous_cost)
-        params = select(active, new_params, params)
-        last_cost = torch.where(active, cost, last_cost)
-        count = count + active.to(torch.int32)
-        done = done | converged  # a finished instance stays done
-        if bool(torch.all(done)):  # the one host read of the iteration
-            break
+            adapted = torch.clamp(adapted, oh.min_lambda, oh.max_lambda)
+            # a finished instance's columns are written too, and reset to NaN
+            # past its own count at exit
+            for rec, value in zip(records, (cost, lam, grad_norm, step_norm)):
+                rec[:, iteration] = value
+            # A converging iteration breaks before the lambda/previous_cost
+            # update (reference: .._analytic.cc:138-148).
+            keep = active & ~converged
+            lam = torch.where(keep, adapted, lam)
+            previous_cost = torch.where(keep, cost, previous_cost)
+            params = select(active, new_params, params)
+            last_cost = torch.where(active, cost, last_cost)
+            count = count + active.to(torch.int32)
+            done = done | converged  # a finished instance stays done
+            if tracing.host_read(torch.all(done), bool):  # the one host read of the iteration
+                break
 
     ran = torch.arange(max_it, device=device) < count[:, None]
     records = IterationRecord(

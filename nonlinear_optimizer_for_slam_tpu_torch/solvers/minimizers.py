@@ -43,6 +43,7 @@ from ..ops import cuda_kernels, mahalanobis, point_to_plane, reprojection
 from ..ops.reprojection import CameraIntrinsics
 from ..parallel import FactorMesh, reducer
 from ..parallel.sharded import shard_rows
+from ..utils import tracing
 from . import lm
 from .manifolds import SE2Params, SE3Params, se2_retract, se3_retract
 
@@ -58,7 +59,7 @@ def _round_up(n: int, multiple: int) -> int:
 def _pose_from_params(params: SE3Params) -> Pose:
     """Device SE3Params -> host Pose: one copy to the host, then the
     quaternion is normalised in float64 numpy."""
-    tq = torch.cat([params.translation, params.quaternion]).cpu().numpy()
+    tq = tracing.host_read(torch.cat([params.translation, params.quaternion])).numpy()
     t = np.asarray(tq[:3], np.float64)
     q = np.asarray(tq[3:], np.float64)
     q = q / np.linalg.norm(q)
@@ -183,6 +184,7 @@ class MahalanobisDistanceMinimizer(_MinimizerBase):
     """6-DoF NDT scan-to-map alignment
     (reference: mahalanobis_distance_minimizer_analytic{,_simd}.cc)."""
 
+    @tracing.traced("nls.solve")
     def solve(
         self,
         options: Options,
@@ -216,6 +218,7 @@ class MahalanobisDistanceMinimizer3DOF(_MinimizerBase):
     (.._analytic_3dof.cc:22-25), and the result overwrites only those, so
     z, roll and pitch of the input pose pass through (:104-105)."""
 
+    @tracing.traced("nls.solve")
     def solve(
         self,
         options: Options,
@@ -228,7 +231,7 @@ class MahalanobisDistanceMinimizer3DOF(_MinimizerBase):
         if self.priors is not None:
             # the SE(3) prior projected onto the plane: (x, y) and the yaw
             # of the prior quaternion, as stored in the solve's dtype
-            pq = self.priors.quaternion.cpu().numpy().astype(np.float64)
+            pq = tracing.host_read(self.priors.quaternion).numpy().astype(np.float64)
             planar_priors = (
                 self.priors.translation[:2],
                 self._as_tensor(2.0 * np.arctan2(pq[3], pq[0])),
@@ -239,7 +242,7 @@ class MahalanobisDistanceMinimizer3DOF(_MinimizerBase):
         params, summary = _maha3_solve(
             t0, theta0, data, self.loss_function, planar_priors, options, self.backend, reduce
         )
-        t2_theta = torch.cat([params.translation, params.theta[None]]).cpu().numpy()
+        t2_theta = tracing.host_read(torch.cat([params.translation, params.theta[None]])).numpy()
         out = pose.copy()
         out.translation = out.translation.copy()
         out.rotation = out.rotation.copy()
@@ -256,6 +259,7 @@ class ReprojectionErrorMinimizer(_MinimizerBase):
     def _intrinsics(self, intrinsics: CameraIntrinsics) -> CameraIntrinsics:
         return intrinsics_tensors(intrinsics, self.dtype, self.device)
 
+    @tracing.traced("nls.solve")
     def solve(
         self,
         options: Options,
@@ -289,6 +293,7 @@ class PointToPlaneMinimizer(_MinimizerBase):
     """6-DoF point-to-plane ICP (factor math from the reference's
     pose_optimizer/cost_functors.h:106-157)."""
 
+    @tracing.traced("nls.solve")
     def solve(
         self,
         options: Options,

@@ -6,6 +6,10 @@ context-manager scope timer feeding a singleton aggregator that can print a
 min/max/avg/std/total "Time Analysis" table — by default at interpreter
 exit, like the reference's destructor dump (time_checker.cc:44-76).
 
+Every scope also runs under ``tracing.span(label)``: while a
+``torch.profiler`` runs, it is a span on the profiler's timeline beside the
+kernels; with none running it costs one check.
+
 Device-aware additions the reference has no counterpart for:
 - ``device_time`` waits for the CUDA devices of the tensors the body hands
   it before it stops the clock, so asynchronous kernel launches don't make
@@ -26,6 +30,8 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+
+from . import tracing
 
 
 class TimeCheckerManager:
@@ -102,13 +108,17 @@ class TimeChecker:
             label = f"{frame.filename.rsplit('/', 1)[-1]}/{frame.function}"
         self.label = label
         self._start = 0.0
+        self._span = None
 
     def __enter__(self):
+        self._span = tracing.span(self.label)
+        self._span.__enter__()
         self._start = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         ms = (time.perf_counter() - self._start) * 1e3
+        self._span.__exit__(*exc)
         TimeCheckerManager.instance().register_time(self.label, ms)
         return False
 
@@ -140,25 +150,26 @@ def device_time(label: str, result_holder: Optional[dict] = None):
     them) in ``result_holder['out']``; before the clock stops, each CUDA
     device that holds one of them is synchronised. Tensors on the CPU are
     done when the body returns them."""
-    start = time.perf_counter()
-    holder = result_holder if result_holder is not None else {}
-    yield holder
-    out = holder.get("out")
-    if out is not None:
-        for device in {t.device for t in _tensors(out) if t.is_cuda}:
-            torch.cuda.synchronize(device)
-    ms = (time.perf_counter() - start) * 1e3
+    with tracing.span(label):
+        start = time.perf_counter()
+        holder = result_holder if result_holder is not None else {}
+        yield holder
+        out = holder.get("out")
+        if out is not None:
+            for device in {t.device for t in _tensors(out) if t.is_cuda}:
+                torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - start) * 1e3
     TimeCheckerManager.instance().register_time(label, ms)
 
 
 @contextlib.contextmanager
 def trace(label: str, log_dir: Optional[str] = None):
-    """``torch.profiler`` trace of the body, under ``record_function(label)``,
+    """``torch.profiler`` trace of the body, under ``tracing.span(label)``,
     the host's activity and, with a GPU, the device's; at exit the trace is
     written to ``log_dir`` (default ``torch-trace`` under the temporary
     directory, ``TMPDIR``) as a Chrome trace (``*.pt.trace.json``, for
     Perfetto or TensorBoard). Yields the profiler."""
-    from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -166,5 +177,5 @@ def trace(label: str, log_dir: Optional[str] = None):
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "torch-trace")
     handler = tensorboard_trace_handler(log_dir)
     with profile(activities=activities, on_trace_ready=handler) as prof:
-        with record_function(label):
+        with tracing.span(label):
             yield prof
