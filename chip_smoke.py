@@ -15,7 +15,9 @@ batched shapes, lane by lane, against its plain version; the batched
 solvers (maha at B = 16, PnP at B = 256, p2p at B = 16; one kernel launch
 per batched LM iteration, every instance's count equal to its serial
 solve's and to the plain path's), the registrar's vmap batch mode beside
-lockstep and the plain registrar at B = 4, D2D registration
+lockstep and the plain registrar at B = 4, the registrar's blocks replayed
+from CUDA graphs against its eager blocks (bit for bit, with equal counts,
+timed in turns, and K swept at B = 16), D2D registration
 (host loop and ``D2dRegistrar``) and loop closure. All five are one-launch kernels on
 ``csrc/onepass.cuh``; each is also held to its plain version at edge sizes
 of N, over 1,000 launches that alternate between two shapes, on a second
@@ -921,6 +923,7 @@ def main() -> int:
     for objective in ("maha", "p2p"):
         reg, scan_local, init, _ = runs[objective]
         prof = _profile(lambda: reg.register(scan_local, init))
+        _check_traced_launches(f"registrar_profile {objective}", prof, reg.run_stats()["steps"])
         emit("registrar_profile", objective=objective,
              device_kernels_per_step=prof["device_kernels"] / reg.run_stats()["steps"], **prof)
     # what K, the steps per block, trades: wasted steps against host reads
@@ -934,6 +937,92 @@ def main() -> int:
     finally:
         fused.BLOCK_STEPS = default_k
     emit("registrar_block_sweep", objective="maha", runs=5, by_block_steps=sweep,
+         device=name, nvidia_smi=smi)
+
+    # the block's CUDA graph: each path's eager run, then a run that
+    # captures its second block and one that replays every block, all with
+    # the eager run's bits, run statistics and launch counts, and a
+    # replayed run's traced kernels equal to its counted launches; two
+    # async batches hand out tensors of their own; eager against graph in
+    # turns; and K swept at B = 16 under graphs
+    graph_cases = {
+        "maha_b16": (reg_m, lambda: reg_m.register_batch_async([local] * B, starts)),
+        "maha": (reg_m, lambda: reg_m.register_async(local_m, init_m)),
+        **{o: (runs[o][0], lambda o=o: runs[o][0].register_async(*runs[o][1:3]))
+           for o in ("planar", "p2p")},
+    }
+    d2d_graph = port.D2dRegistrar(p2p_map, port.Options())
+    graph_cases["d2d"] = (d2d_graph, lambda: d2d_graph.register_async(local, identity))
+    for solver in (port.LinearSolverType.DENSE_QR, port.LinearSolverType.CONJUGATE_GRADIENT):
+        reg_s = port.NdtRegistrar(ndt_map, port.Options(linear_solver_type=solver), loss)
+        tag = {"DENSE_QR": "qr", "CONJUGATE_GRADIENT": "cg"}[solver.name]
+        graph_cases[f"maha_b16_{tag}"] = (
+            reg_s, lambda r=reg_s: r.register_batch_async([local] * B, starts))
+        graph_cases[f"maha_{tag}"] = (reg_s, lambda r=reg_s: r.register_async(local_m, init_m))
+    can_capture = fused._can_capture
+    eager_only = lambda device: False
+
+    def graph_run(reg, run, capture):
+        fused._can_capture = capture
+        try:
+            ck.reset_launches()
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            fused._can_capture = can_capture
+        return out, reg.run_stats(), dict(ck.LAUNCHES)
+
+    graph_report = {}
+    for label, (reg, run) in graph_cases.items():
+        reg._graph = None
+        eager, eager_stats, eager_launches = graph_run(reg, run, eager_only)
+        reads = eager_stats["host_reads"]
+        capture_ms = None
+        for graph_blocks in (reads - 1, reads):
+            t0 = time.perf_counter()
+            out, stats, launches = graph_run(reg, run, can_capture)
+            capture_ms = capture_ms or 1e3 * (time.perf_counter() - t0)
+            for a, b in zip(out, eager):
+                torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                           msg=f"registrar_graph {label}: a result's bits differ")
+            if launches != eager_launches or stats != {**eager_stats, "graph_blocks": graph_blocks}:
+                raise AssertionError(f"registrar_graph {label}: graph run {stats} {launches}; "
+                                     f"eager {eager_stats} {eager_launches}")
+        prof = _profile(run, warm=False)  # every block replayed
+        if reg.run_stats()["graph_blocks"] != reads:
+            raise AssertionError(f"registrar_graph {label}: profiled run {reg.run_stats()}")
+        _check_traced_launches(f"registrar_graph {label}", prof, eager_stats["steps"])
+        walls = {"eager": [], "graph": []}
+        for i in range(10):  # in turns
+            mode, capture = (("eager", eager_only), ("graph", can_capture))[i % 2]
+            t0 = time.perf_counter()
+            graph_run(reg, run, capture)
+            walls[mode].append(1e3 * (time.perf_counter() - t0))
+        graph_report[label] = {
+            "steps": eager_stats["steps"], "host_reads": reads,
+            "launches": {k: v for k, v in eager_launches.items() if v},
+            "traced_port_kernels": prof["port_kernels"], "capturing_run_ms": capture_ms,
+            **{f"{k}_median_ms": statistics.median(v) for k, v in walls.items()},
+        }
+    first = reg_m.register_batch_async([local] * B, starts)
+    kept = [a.clone() for a in first]
+    second = reg_m.register_batch_async([local] * B, starts)
+    torch.cuda.synchronize()
+    for a, b in zip(first, kept):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                   msg="registrar_graph: a second batch changed the first's results")
+    if {a.data_ptr() for a in first} & {a.data_ptr() for a in second}:
+        raise AssertionError("registrar_graph: two async batches share their result tensors")
+    sweep16 = {}
+    try:
+        for k in (1, 4, 8, 16):
+            fused.BLOCK_STEPS = k
+            w = _walls_ms(lambda: reg_m.register_batch([local] * B, starts), 5)
+            sweep16[k] = {"median_ms": statistics.median(w), **reg_m.run_stats()}
+    finally:
+        fused.BLOCK_STEPS = default_k
+    emit("registrar_graph", cases=graph_report, bitwise_equal=True, async_results_own=True,
+         batch16_by_block_steps=sweep16, graph_lanes=reg_m._graph.key[0][0],
          device=name, nvidia_smi=smi)
 
     # ---- 7b. slice 7: batched solves, the vmap registrar, D2D, loop closure -
@@ -4520,6 +4609,17 @@ def _ptxas_summary(log: str) -> list:
             out.append(f"{fn}: {line.split(':', 1)[1].strip()}; {spills}")
             fn = None
     return out
+
+
+def _check_traced_launches(phase: str, prof: dict, steps: int) -> None:
+    """A registrar run's port kernels in the trace (``_profile``) against
+    its ``ck.LAUNCHES`` count: one launch a step, each in the trace, so a
+    count that a graph replay adds is held to the kernels it ran."""
+    traced, counted = sum(prof["port_kernels"].values()), sum(prof["port_launches"].values())
+    if not traced == counted == steps:
+        raise AssertionError(f"{phase}: port kernels {prof['port_kernels']} in the trace, "
+                             f"ck.LAUNCHES {prof['port_launches']} in the profiled call, "
+                             f"{steps} steps, want one launch a step")
 
 
 def _walls_ms(fn, runs: int) -> list:

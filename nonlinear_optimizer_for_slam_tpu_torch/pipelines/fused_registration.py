@@ -41,8 +41,26 @@ the host). After each block the host reads two flags in one copy:
 Freezing makes the extra steps of a block change nothing, so the
 trajectory is the lockstep one above, whatever K is. K trades wasted
 masked steps (at most K - 1 per outer iteration) against host reads
-(about evaluations / K + outer iterations). The block body is fit to be
-captured in a CUDA graph later; it is not captured here.
+(about evaluations / K + outer iterations).
+
+On the kernel path (``eval_backend="cuda"``) the block is replayed from
+a CUDA graph. Its key is everything the captured kernels fix: lanes B,
+the correspondence buffer's shape and strides, the dtypes, ``planar``,
+``objective``, the device, K, the options and the outer iteration cap.
+The first block of a shape that the registrar has no graph for runs
+eagerly (it warms cuBLAS, cuSOLVER and the kernels' workspaces); the
+next captures the graph and replays it, and every later block of that
+shape, in this run and the next, replays it. A registrar keeps one
+graph: a new key captures a new one in the old one's memory and drops
+the old, since ``register`` does not pad N and a stream of scans seldom
+meets the same N twice. The graph reads the state and the buffer from
+static tensors it owns and copies the new state back into them, so
+replays chain with nothing copied on the host's side; a rematch copies
+the new buffer into its static one. A run's results are copies, never
+the static tensors. A replayed block gives the eager block's bits, and
+``ck.LAUNCHES`` counts the kernels a replay runs. The "torch" path, a
+mesh (whose sum over ranks may run on gloo) and the vmap mode (which
+matches inside the block) run eagerly.
 
 Evaluation
 ----------
@@ -80,7 +98,7 @@ then the same on every rank.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -204,6 +222,84 @@ class _State(NamedTuple):
     active_steps: Tensor  # () int64: steps in which some lane ran
 
 
+def _can_capture(device: torch.device) -> bool:
+    """Whether work on ``device`` can be captured in a CUDA graph now: a
+    CUDA device, and no capture already under way."""
+    return device.type == "cuda" and not torch.cuda.is_current_stream_capturing()
+
+
+# The side stream of each device that captures run on: one, so that
+# cuBLAS and cuSOLVER keep one workspace for captures, not one a stream.
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture(body: Callable[[], None], device: torch.device, share=None):
+    """The work of ``body()`` on ``device`` captured in a CUDA graph
+    (nothing runs); its ``replay()`` runs that work. Captured on a side
+    stream, as ``torch.cuda.graph`` does, without its synchronise and its
+    emptying of the allocator's cache, which a registrar that meets a new
+    shape on every call would pay on every call. ``share``: a graph whose
+    memory pool the new graph takes over (it must not replay again)."""
+    graph = torch.cuda.CUDAGraph()
+    side = _CAPTURE_STREAMS.get(device)
+    if side is None:
+        side = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    main = torch.cuda.current_stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):  # on ``device``, which it makes current
+        graph.capture_begin(pool=None if share is None else share.pool())
+        try:
+            body()
+        finally:
+            graph.capture_end()
+    main.wait_stream(side)
+    return graph
+
+
+class _BlockGraph:
+    """A machine's block captured in a CUDA graph over static tensors it
+    owns: the state, the correspondence buffer and the (all_done, sync)
+    flags, loaded with ``st`` and ``data``. A replay runs the block on the
+    static state and copies the new state and the flags back into them.
+    ``key``: the machine's key of the graph; ``launches``: the kernel
+    launches of one replay, by kernel. ``previous``: the graph this one
+    replaces, whose memory it takes over."""
+
+    def __init__(self, machine: "_Machine", key: tuple, st: _State, data: Tensor,
+                 previous: Optional["_BlockGraph"] = None):
+        self.key = key
+        self.state = _State(*(a.clone() for a in st))
+        # laid out as ``data`` (on the card: the kernels' padded rows)
+        self.data = data.clone() if data.is_contiguous() else ck.lane_aligned(data.clone())
+        self.flags = torch.zeros(2, dtype=torch.bool, device=data.device)
+
+        def body():
+            new, _, flags = machine._block(self.state, self.data)
+            for static, a in zip(self.state, new):
+                static.copy_(a)
+            self.flags.copy_(flags)
+
+        before = dict(ck.LAUNCHES)
+        self.graph = _capture(body, data.device, previous and previous.graph)
+        # the capture ran nothing: its launches count on each replay
+        self.launches = {k: n - before[k] for k, n in ck.LAUNCHES.items() if n != before[k]}
+        ck.LAUNCHES.update(before)
+        tracing.count("graph.captures")
+        self.load(st, data)
+
+    def load(self, st: _State, data: Tensor) -> None:
+        for static, a in zip(self.state, st):
+            static.copy_(a)
+        self.data.copy_(data)
+
+    def replay(self) -> None:
+        with tracing.span("nls.graph.replay"):
+            self.graph.replay()
+        for k, n in self.launches.items():
+            ck.LAUNCHES[k] += n
+        tracing.count("graph.replays")
+
+
 class _Machine:
     """The batched state machine of the module docstring, over the
     correspondences that a subclass's ``operand(t, q)`` builds for every
@@ -233,7 +329,9 @@ class _Machine:
         self.loss = loss
         self.max_outer_iterations = max_outer_iterations
         self._last_run: Optional[dict] = None
+        self.mesh: Optional[FactorMesh] = None
         self._reduce = lambda hgc: hgc  # the sum over a mesh's ranks
+        self._graph: Optional[_BlockGraph] = None  # the block's graph (module docstring)
 
         # everything the blocks read, on the device before the first block
         scalar = lambda v: torch.full((), v, dtype=dtype, device=self.device)
@@ -279,16 +377,27 @@ class _Machine:
 
     def run_stats(self) -> dict:
         """Of the last run: steps run, wasted steps (every lane frozen),
-        host reads of the two flags."""
+        host reads of the two flags, blocks replayed from a graph."""
         s = dict(self._last_run)
         active = int(s.pop("active_steps"))
         return {**s, "wasted_steps": s["steps"] - active}
+
+    def _graph_key(self, data, vmap: bool) -> Optional[tuple]:
+        """The key of the block's graph for the buffer ``data``, or None
+        where the block runs eagerly (see the module docstring)."""
+        if (vmap or self.mesh is not None or self.eval_backend != "cuda"
+                or not _can_capture(self.device)):
+            return None
+        return (tuple(data.shape), data.stride(), data.dtype, self.dtype, self.planar,
+                self.objective, str(self.device), BLOCK_STEPS, self.options,
+                self.max_outer_iterations)
 
     def _drive(self, operand, t0: Tensor, q0: Tensor, vmap: bool = False):
         """Run the machine from (B, 3) ``t0`` and (B, 4) ``q0``: returns (t,
         q, outer_it, inner_its, costs, final_cost), (B, ...) device tensors.
         ``vmap`` rematches each lane as soon as its own inner solve ends
-        (see :meth:`_block`) instead of at the lockstep sync."""
+        (see :meth:`_block`) instead of at the lockstep sync. Blocks replay
+        from a graph where the module docstring says."""
         B = t0.shape[0]
         dev, dt = self.device, self.dtype
         zeros_i = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -311,19 +420,36 @@ class _Machine:
                 return operand(t, q)
 
         data = match(t0, q0)
-        steps = reads = 0
+        key = self._graph_key(data, vmap)
+        graph = self._graph if self._graph is not None and self._graph.key == key else None
+        if graph is not None:
+            graph.load(st, data)
+        steps = reads = replays = 0
         while True:
             with tracing.span("nls.block"):
-                st, data, flags = self._block(st, data, match if vmap else None)
+                if graph is None and key is not None and reads:
+                    graph = self._graph = _BlockGraph(self, key, st, data, self._graph)
+                if graph is None:
+                    st, data, flags = self._block(st, data, match if vmap else None)
+                else:
+                    graph.replay()
+                    replays += 1
+                    flags = graph.flags
             steps += BLOCK_STEPS
             all_done, sync = tracing.host_read(flags, Tensor.tolist)  # the one read of the block
             reads += 1
             if all_done:
                 break
-            if sync:
+            if sync and graph is None:
                 data = match(st.t, st.q)
                 st = st._replace(waiting=false)
-        self._last_run = {"steps": steps, "host_reads": reads, "active_steps": st.active_steps}
+            elif sync:
+                graph.data.copy_(match(graph.state.t, graph.state.q))
+                graph.state.waiting.zero_()
+        if graph is not None:  # the caller's own tensors: the next run overwrites the static ones
+            st = _State(*(a.clone() for a in graph.state))
+        self._last_run = {"steps": steps, "host_reads": reads, "graph_blocks": replays,
+                          "active_steps": st.active_steps}
         return st.t, st.q, st.outer_it, st.inner_its, st.costs, st.final_cost
 
     def _block(self, st: _State, data, rematch=None):

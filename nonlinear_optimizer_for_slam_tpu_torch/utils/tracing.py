@@ -19,12 +19,15 @@ device falls under the span the host was in. The port's spans:
 - ``nls.read``: the host blocked on a copy from the device
   (:func:`host_read`);
 - ``nls.batch.upload``: the registrar's padding of the scans and their
-  upload; ``nls.block``: one block of K machine steps, enqueued;
-  ``nls.batch.finalize``: the copies of a run's results to the host and
-  their unpacking.
+  upload; ``nls.block``: one block of K machine steps, enqueued (a
+  capture or a replay included); ``nls.graph.replay``: inside it, the
+  replay of the block's CUDA graph; ``nls.batch.finalize``: the copies of
+  a run's results to the host and their unpacking.
 
 The counters count whether a profiler runs or not: ``host_reads``, one a
-:func:`host_read`; :func:`counters` also reports the kernel launches of
+:func:`host_read`; ``graph.captures`` and ``graph.replays``, one a
+capture and one a replay of a registrar block's CUDA graph;
+:func:`counters` also reports the kernel launches of
 ``ops.cuda_kernels.LAUNCHES`` as ``launch.<kernel>``.
 """
 

@@ -47,9 +47,11 @@ from nonlinear_optimizer_for_slam_tpu.utils import testing as jtesting
 import nonlinear_optimizer_for_slam_tpu_torch as port
 from nonlinear_optimizer_for_slam_tpu_torch import interop
 from nonlinear_optimizer_for_slam_tpu_torch.ops import cuda_kernels as ck
+from nonlinear_optimizer_for_slam_tpu_torch.parallel import make_factor_mesh
 from nonlinear_optimizer_for_slam_tpu_torch.pipelines import fused_registration as tfr
 from nonlinear_optimizer_for_slam_tpu_torch.pipelines import matching, ndt
 from nonlinear_optimizer_for_slam_tpu_torch.solvers import minimizers
+from nonlinear_optimizer_for_slam_tpu_torch.utils import tracing
 
 P2P_START = (0.0, 0.0, 0.05)
 CASES = {
@@ -373,3 +375,151 @@ def test_api_errors(world):
     padded = port.NdtRegistrar(tmap, port.Options(), device="cpu", map_pad_multiple=128)
     with pytest.raises(NotImplementedError, match="map_pad_multiple"):
         padded.register_batch([scan], [nls.Pose.identity()])
+
+
+# ---- the block's CUDA graph, with a stand-in graph on the CPU --------------
+
+
+class _FakeGraph:
+    """A CUDA graph's stand-in: the capture runs the body once (a real one
+    runs nothing; the machine loads its static state after it either way),
+    and a replay runs it again with its kernel calls uncounted, as a real
+    replay runs no Python."""
+
+    def __init__(self, body, device, share=None):
+        body()
+        self.body = body
+
+    def replay(self):
+        saved = dict(ck.LAUNCHES)
+        self.body()
+        ck.LAUNCHES.update(saved)
+
+
+def _fake_card(monkeypatch, world, case, kernel_path=True, **kw):
+    """A CPU registrar of ``case`` whose blocks may take the graph path,
+    with :class:`_FakeGraph` for the graph and, with ``kernel_path``, the
+    kernel path through the plain versions, each call counted in
+    ``ck.LAUNCHES`` as a launch on the card is. Graphs stay off until the
+    test turns ``tfr._can_capture`` on."""
+    case_kw, moment, start = CASES[case]
+    reg = port.NdtRegistrar(world[0][moment][0], port.Options(), port.ExponentialLoss(1.0, 1.0),
+                            device="cpu", **case_kw, **kw)
+    if kernel_path:
+        reg.eval_backend = "cuda"
+        reg._loss_code, reg._loss_ab = ck.maha6_loss_ab(reg.loss, "cpu")
+    onepass = ck._onepass
+
+    def counted(name, *args):
+        ck.LAUNCHES[name] += 1
+        return onepass(name, *args)
+
+    monkeypatch.setattr(ck, "_onepass", counted)
+    monkeypatch.setattr(tfr, "_capture", _FakeGraph)
+    monkeypatch.setattr(tfr, "_can_capture", lambda device: False)
+    return reg, _start(start)
+
+
+def _graph_counts() -> dict:
+    c = tracing.counters()
+    return {k: c.get(k, 0) for k in ("graph.captures", "graph.replays")}
+
+
+def _same_bits(got, want):
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("case", ["planar", "p2p"])
+def test_block_graph_captures_the_second_block(world, case, monkeypatch):
+    """The first block of a new shape runs eagerly, the second captures
+    the graph and replays it, every later block replays, and the next run
+    of that shape replays from its first block. Each run gives the eager
+    run's bits and run statistics, ``graph_blocks`` counts the replays,
+    ``ck.LAUNCHES`` counts one launch a step (a replay adds the graph's
+    launches, the capture none), and the results are the caller's own."""
+    reg, start = _fake_card(monkeypatch, world, case)
+    scan, kernel = world[1], {"planar": "maha3", "p2p": "p2p"}[case]
+    calls = []
+    block = reg._block
+    monkeypatch.setattr(reg, "_block", lambda *a: calls.append(1) or block(*a))
+
+    def run():
+        ck.reset_launches()
+        calls.clear()
+        before = _graph_counts()
+        out = reg.register_async(scan, start)
+        counts = {k: v - before[k] for k, v in _graph_counts().items()}
+        launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+        # the blocks run outside a replay (the stand-in's replays run it too)
+        return out, reg.run_stats(), launches, counts, len(calls) - counts["graph.replays"]
+
+    eager, eager_stats, launches, counts, blocks = run()
+    steps, reads = eager_stats["steps"], eager_stats["host_reads"]
+    assert eager_stats["graph_blocks"] == 0 and reads >= 3 and reg._graph is None
+    assert launches == {kernel: steps} and blocks == reads
+    assert counts == {"graph.captures": 0, "graph.replays": 0}
+
+    monkeypatch.setattr(tfr, "_can_capture", lambda device: True)
+    first, stats, launches, counts, blocks = run()
+    _same_bits(first, eager)
+    assert stats == {**eager_stats, "graph_blocks": reads - 1}
+    assert launches == {kernel: steps} and blocks == 2  # the eager block and the capture
+    assert counts == {"graph.captures": 1, "graph.replays": reads - 1}
+    kept = [a.clone() for a in first]
+
+    second, stats, launches, counts, blocks = run()
+    _same_bits(second, eager)
+    assert stats == {**eager_stats, "graph_blocks": reads}
+    assert launches == {kernel: steps} and blocks == 0
+    assert counts == {"graph.captures": 0, "graph.replays": reads}
+    graph = reg._graph
+    _same_bits(first, kept)  # the second run left the first run's tensors alone
+    static = {a.data_ptr() for a in graph.state}
+    assert not static & {a.data_ptr() for a in first + second}
+
+
+def test_block_graph_keys_and_lru(world, monkeypatch):
+    """A registrar keeps one graph, of the last shape captured: a new N, a
+    new B or new options is a new key, whose second block captures a graph
+    that replaces the old one; the kept shape replays from its first
+    block."""
+    reg, start = _fake_card(monkeypatch, world, "p2p")
+    monkeypatch.setattr(tfr, "_can_capture", lambda device: True)
+    scan = world[1][::4]
+    shape = lambda: reg._graph.key[0]
+    captures = lambda: _graph_counts()["graph.captures"]
+    for n in (len(scan), len(scan) - 4):
+        reg.register(scan[:n], start)
+        assert reg.run_stats()["graph_blocks"] == reg.run_stats()["host_reads"] - 1
+        assert shape() == (1, 10, n)
+    reg.register_batch([scan, scan], [start] * 2)
+    assert shape() == (2, 10, len(scan))
+    before = captures()
+    reg.register_batch([scan, scan], [start] * 2)
+    stats = reg.run_stats()
+    assert stats["graph_blocks"] == stats["host_reads"] and captures() == before
+    reg.options = reg.options.replace(max_iterations=reg.options.max_iterations - 1)
+    reg.register_batch([scan, scan], [start] * 2)
+    stats = reg.run_stats()
+    assert stats["graph_blocks"] == stats["host_reads"] - 1 and captures() == before + 1
+    assert reg._graph.key[-2] == reg.options
+
+
+@pytest.mark.parametrize("path", ["torch", "mesh", "vmap"])
+def test_block_graph_not_on_eager_paths(world, path, monkeypatch):
+    """The "torch" evaluation, a mesh and the vmap mode run every block
+    eagerly, whatever the device."""
+    kw = {"mesh": make_factor_mesh(device="cpu")} if path == "mesh" else {}
+    reg, start = _fake_card(monkeypatch, world, "p2p", kernel_path=path != "torch", **kw)
+    monkeypatch.setattr(tfr, "_can_capture", lambda device: True)
+    before = _graph_counts()
+    scan = world[1][::2]
+    for _ in range(2):
+        if path == "vmap":
+            reg.register_batch([scan], [start], mode="vmap")
+        else:
+            reg.register(scan, start)
+        stats = reg.run_stats()
+        assert stats["graph_blocks"] == 0 and stats["host_reads"] > 1
+    assert _graph_counts() == before and reg._graph is None
